@@ -11,16 +11,26 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
 3. main path at 512^2, f32: ``PCAIR.setup`` on the host, upload;
 4. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (the 512^2 hierarchy's own DIA and banded
-   operators) and on the test cases, in f32 and f64, timed with CUDA
-   events against the plain version;
+   operators) and on the test cases, in f32 and f64; then kernel, plain
+   version and the one PyTorch call of the same product (a cuSPARSE CSR
+   ``A @ x``, the yardstick ``library_ms``) timed at the 512^2 shapes
+   (see ``measure``);
 5. ``solve_device(b, max_it=10, ksp="richardson")`` with every kernel
    launch counter at 0 before it: convergence to rtol 1e-5, the true
    residual against scipy, and both kernels launched;
 6. the f64 parity configuration at 512^2: full depth, right GMRES from
    x0 = 1 with a zero RHS, rtol 1e-10, <= 6 iterations;
 7. the main path at 2048^2, with 10 levels so that its coarsest grid
-   stays near the 512^2 path's size.
+   stays near the 512^2 path's size, with the launch counters at 0
+   before it and both kernels launched; then one more solve under
+   torch.profiler for each kernel's device time per call in the solve;
+8. each kernel against its plain version (f32) on every DIA and banded
+   operator of the 2048^2 hierarchy, and the timings of phase 4 at the
+   2048^2 shapes.
 
+Kernel times are device times: ``R`` calls captured in one CUDA graph,
+replayed and timed by CUDA events (``graph_ms``).  The eager
+back-to-back time is printed beside them as the host's launch rate.
 The last two lines of standard output are the kernels' JSON line and the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device, or without
 the package beside it, the script fails.
@@ -29,6 +39,7 @@ the package beside it, the script fails.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -40,6 +51,11 @@ DIA_SITES = {"aligned": "pflare_tpu/sparse/dia.py:311",
              "padded": "pflare_tpu/sparse/dia.py:367"}
 BANDED_SITE = "pflare_tpu/sparse/banded.py:238"
 TOL = {"float32": 1e-6, "float64": 1e-13}
+R = 50               # calls captured in one CUDA graph
+REPLAYS = 4          # timed replays of that graph
+L2_BYTES = 50e6      # the H100's L2 cache
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+FP32_FLOPS = 67e12   # H100 SXM float32 outside the tensor cores
 
 
 def require(cond, msg):
@@ -56,8 +72,10 @@ def bench_options(pkg, max_levels=6):
         coarsest_poly_order=24, coarsest_matrix_free_polys=True)
 
 
-def time_ms(torch, fn, reps=50, warmup=5):
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+def eager_ms(torch, fn, reps=50, warmup=5):
+    """Mean time of ``fn`` over ``reps`` eager back-to-back calls by CUDA
+    events: for a short kernel this is the host's launch rate, not the
+    kernel's time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -69,6 +87,37 @@ def time_ms(torch, fn, reps=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fns):
+    """Device time of one call: ``R`` calls, taking ``fns`` in turn,
+    captured in one CUDA graph and replayed ``REPLAYS`` times between two
+    CUDA events, after a warm-up outside the capture and one replay whose
+    last output must equal an eager call's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(R):
+            out = fns[i % len(fns)]()
+    graph.replay()
+    ref = fns[(R - 1) % len(fns)]()
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    require(err <= 1e-6 * float(ref.abs().max()),
+            f"graph replay differs from an eager call by {err:.3e}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (R * REPLAYS)
 
 
 def band_matrix(np, sp, n, w, seed):
@@ -96,7 +145,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import pflare_tpu_torch as tpf
     from pflare_tpu_torch import cuda, native
-    from pflare_tpu_torch.sparse import DIA, BandedSpMV
+    from pflare_tpu_torch.sparse import DIA, TELL, BandedSpMV
     from pflare_tpu_torch.sparse import banded as tbanded
     from pflare_tpu_torch.sparse import dia as tdia
     from pflare_tpu_torch.utils.timers import (device_sync_read, get_timers,
@@ -200,33 +249,101 @@ def main() -> int:
     check(BandedSpMV.from_scipy(band_matrix(np, sp, 1200, 37, 1)), "banded",
           "random band n=1200 w=37")
 
-    def timing(op):
-        x = torch.as_tensor(rng.standard_normal(op.shape[1]),
-                            dtype=op.dtype, device=dev)
-        if isinstance(op, DIA):
-            plain = lambda: tdia.dia_spmv_plain(op.data, op.offsets, x,
-                                                *op.shape)
-        else:
-            plain = lambda: tbanded.banded_spmv_plain(op.data, op.lcols, x,
-                                                      op.n, op.w, op.W)
-        # plain, kernel, kernel, plain: the two versions in turns
-        p1 = time_ms(torch, plain)
-        k1 = time_ms(torch, lambda: op.matvec(x))
-        k2 = time_ms(torch, lambda: op.matvec(x))
-        p2 = time_ms(torch, plain)
-        return min(k1, k2), min(p1, p2)
+    def plain_matvec(M, x):
+        if isinstance(M, DIA):
+            return tdia.dia_spmv_plain(M.data, M.offsets, x, *M.shape)
+        return tbanded.banded_spmv_plain(M.data, M.lcols, x, M.n, M.w, M.W)
 
-    band_op = next(op for _, op in ops if isinstance(op, BandedSpMV))
-    times = {
-        "aligned": timing(dh.top),
-        "padded": timing(DIA.from_scipy(A500, dtype=torch.float32).to(dev)),
-        "banded": timing(band_op),
+    def copy_op(M):
+        if isinstance(M, DIA):
+            return DIA(M.offsets, M.data.clone(), M.shape)
+        return BandedSpMV(M.data.clone(), M.lcols.clone(), M.n, M.n_cols,
+                          M.w, M.W)
+
+    def measure(label, op):
+        """Kernel, plain version and the cuSPARSE CSR product ``A @ x`` of
+        one operator, each by ``graph_ms``, in the order plain, kernel,
+        kernel, plain, library, library (the better of each pair).  The R
+        calls take enough copies of the operator in turn to fill twice
+        the L2, so the operator comes from device memory, as in a
+        V-cycle, while x stays in L2, as it does there.  The bound is the
+        larger of bytes = stored slots * (sizeof T + index bytes, 4 for
+        banded, 0 for DIA) + (n_cols + n) * sizeof T over 3.35 TB/s and
+        2 FLOPs per nonzero over 67 TFLOP/s."""
+        host = op.to_scipy()
+        n, n_cols = op.shape
+        T = op.data.element_size()
+        banded = isinstance(op, BandedSpMV)
+        op_bytes = op.data.numel() * (T + (4 if banded else 0))
+        copies = min(R, max(1, math.ceil(2 * L2_BYTES / op_bytes)))
+        mats = [op] + [copy_op(op) for _ in range(copies - 1)]
+        csrs = [torch.sparse_csr_tensor(
+            torch.as_tensor(host.indptr, dtype=torch.int32),
+            torch.as_tensor(host.indices, dtype=torch.int32),
+            torch.as_tensor(host.data, dtype=op.dtype),
+            size=host.shape).to(dev) for _ in range(copies)]
+        x = torch.as_tensor(rng.standard_normal(n_cols), dtype=op.dtype,
+                            device=dev)
+        kernel = [lambda M=M: M.matvec(x) for M in mats]
+        plain = [lambda M=M: plain_matvec(M, x) for M in mats]
+        library = [lambda C=C: C @ x for C in csrs]
+        p1, k1, k2, p2, l1, l2 = (graph_ms(torch, f) for f in (
+            plain, kernel, kernel, plain, library, library))
+        if banded:
+            # what make_op would build without the banded container: the
+            # plain PyTorch TELL gather (one gather, multiply, add a slot)
+            tells = [TELL.from_scipy(host, dtype=op.dtype).to(dev)
+                     for _ in range(copies)]
+            tell_ms = graph_ms(torch, [lambda M=M: M.matvec(x)
+                                       for M in tells])
+        t_bytes = (op_bytes + (n + n_cols) * T) / HBM_BYTES_S * 1e3
+        t_ops = 2 * host.nnz / FP32_FLOPS * 1e3
+        row = {
+            "shape": f"{label}: {n} x {n_cols}, K={op.data.shape[0]}"
+                     + (f", W={op.W}" if banded else "")
+                     + f", {host.nnz} nonzeros in {op.data.numel()} slots",
+            "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "library_ms": min(l1, l2),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "host_launch_ms": eager_ms(torch, kernel[0]),
+            "operator_copies": copies,
+        }
+        if banded:
+            row["tell_plain_ms"] = tell_ms
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        print(f"# time {row['shape']} ({op.dtype}): graph replay kernel "
+              f"{row['ms']:.6f} ms (pair {k1:.6f}/{k2:.6f}), plain "
+              f"{row['plain_ms']:.6f} ms, cuSPARSE CSR {row['library_ms']:.6f}"
+              f" ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}; "
+              f"{row['share_of_bound']:.1%} of it); eager back-to-back kernel "
+              f"calls (host launch rate) {row['host_launch_ms']:.6f} ms; "
+              f"{copies} operator copies"
+              + (f"; TELL plain gather {tell_ms:.6f} ms" if banded else ""))
+        return row
+
+    def banded_targets(dhier):
+        """The largest banded A_ff or A_fc, where one is banded (at 2048^2
+        none is: their K * W exceeds the banded envelope), and the largest
+        banded P of a device hierarchy."""
+        found = {}
+        for i, lev in enumerate(dhier.levels):
+            for k in ("A_ff", "A_fc", "P"):
+                op, key = lev[k], "P" if k == "P" else "A"
+                if isinstance(op, BandedSpMV) and (
+                        key not in found
+                        or op.data.numel() > found[key][1].data.numel()):
+                    found[key] = (f"level {i} {k}", op)
+        require("P" in found, "the hierarchy has no banded P")
+        return [found[key] for key in ("A", "P") if key in found]
+
+    timed = {
+        "aligned": [measure("512^2 top A", dh.top)],
+        "padded": [measure("500^2 A", DIA.from_scipy(
+            A500, dtype=torch.float32).to(dev))],
+        "banded": [measure("512^2 " + label, op)
+                   for label, op in banded_targets(dh)],
     }
-    print(f"# timed shapes: aligned = 512^2 top A {dh.top.shape} "
-          f"K={len(dh.top.offsets)}; padded = 500^2 A K=3; banded = "
-          f"{band_op.shape} W={band_op.W} K={band_op.data.shape[0]} (f32)")
-    for k, (km, pm) in times.items():
-        print(f"# time {k}: kernel {km:.5f} ms, plain {pm:.5f} ms")
 
     # ~~~~~~~~~~ 5. the main path's solve at 512^2 ~~~~~~~~~~
     b = np.random.default_rng(1).standard_normal(A512.shape[0])
@@ -293,16 +410,21 @@ def main() -> int:
     t_setup2k = time.perf_counter() - t0
     print(f"# 2048^2 f32 setup phases: {setup_breakdown()}")
     t0 = time.perf_counter()
-    pc2k.upload()
+    dh2k = pc2k.upload()
     torch.cuda.synchronize()
     t_upload2k = time.perf_counter() - t0
     b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
     solve_s = []
+    tdia.KERNEL_LAUNCHES = 0
+    tbanded.KERNEL_LAUNCHES = 0
     for _ in range(2):
         t0 = time.perf_counter()
         x2k, n2k = pc2k.solve_device(b2k, max_it=10, ksp="richardson")
         device_sync_read(x2k, n2k)
         solve_s.append(time.perf_counter() - t0)
+        if len(solve_s) == 1:   # the counts of the first solve alone
+            launches2k = {"dia": tdia.KERNEL_LAUNCHES,
+                          "banded": tbanded.KERNEL_LAUNCHES}
     n2k = n2k.cpu().numpy()
     its2k = _converged_at(np, n2k, 1e-5)
     true2k = float(np.linalg.norm(A2k @ x2k.double().cpu().numpy() - b2k)
@@ -310,24 +432,82 @@ def main() -> int:
     print(f"# 2048^2 f32: {A2k.shape[0]} rows, {pc2k.n_levels} levels, "
           f"setup {t_setup2k:.3f} s (host), upload {t_upload2k:.3f} s, "
           f"solve {solve_s[0]:.4f} s first / {solve_s[1]:.4f} s warm, "
-          f"rtol 1e-5 at iteration {its2k}, true residual {true2k:.3e}")
+          f"rtol 1e-5 at iteration {its2k}, true residual {true2k:.3e}, "
+          f"launches in the first solve {launches2k}")
     require(its2k is not None and true2k <= 1e-4,
             "2048^2 Richardson did not converge")
+    require(launches2k["dia"] > 0 and launches2k["banded"] > 0,
+            f"a kernel of the 2048^2 path was not launched: {launches2k}")
+
+    # each kernel's device time per call inside the solve, by the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        device_sync_read(*pc2k.solve_device(b2k, max_it=10,
+                                            ksp="richardson"))
+        t_prof = time.perf_counter() - t0
+    in_solve = {"dia": [0, 0.0], "banded": [0, 0.0]}
+    busy_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:   # kernels, copies, sets
+            busy_us += evt.self_device_time_total
+        for kind in in_solve:
+            if f"{kind}_spmv_kernel" in evt.key:
+                in_solve[kind][0] += evt.count
+                in_solve[kind][1] += evt.device_time_total
+    print(f"# 2048^2 profiled solve: wall {t_prof:.4f} s, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / 1e6 / t_prof:.1%}; " + ", ".join(
+              f"{kind} kernel {c} calls, {t / 1e3:.3f} ms, "
+              f"{t / c if c else float('nan'):.2f} us a call"
+              for kind, (c, t) in in_solve.items()))
+
+    # ~~~~~~~~~~ 8. kernels at the 2048^2 shapes ~~~~~~~~~~
+    ops2k = [("2048^2 top A", dh2k.top)]
+    for i, lev in enumerate(dh2k.levels):
+        ops2k += [(f"2048^2 level {i} {k}", lev[k])
+                  for k in ("A_ff", "A_fc", "R", "P")]
+        if lev["inv_Aff"].kind == "assembled":
+            ops2k.append((f"2048^2 level {i} inv_Aff", lev["inv_Aff"].mat))
+    for label, op in ops2k:
+        if not isinstance(op, (DIA, BandedSpMV)):
+            continue
+        x = torch.as_tensor(rng.standard_normal(op.shape[1]),
+                            dtype=op.dtype, device=dev)
+        y, ref = op.matvec(x), plain_matvec(op, x)
+        torch.cuda.synchronize()
+        rel = float((y - ref).norm() / ref.norm())
+        require(rel <= TOL["float32"], f"{label}: kernel vs plain relative "
+                f"error {rel:.3e}")
+        group = "aligned" if isinstance(op, DIA) else "banded"
+        err[group] = max(err[group], float((y - ref).abs().max()))
+        print(f"# check {label} {type(op).__name__} float32 shape "
+              f"{op.shape} rel err {rel:.3e}")
+    A2000 = DIA.from_scipy(tpf.adv_diff_2d(2000), dtype=torch.float32).to(dev)
+    timed["aligned"].insert(0, measure("2048^2 top A", dh2k.top))
+    timed["padded"].insert(0, measure("2000^2 A", A2000))
+    timed["banded"][:0] = [measure("2048^2 " + label, op)
+                           for label, op in banded_targets(dh2k)]
 
     kernels = []
-    for group, site in (("aligned", DIA_SITES["aligned"]),
-                        ("padded", DIA_SITES["padded"])):
+    for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
+                              ("padded", "dia", DIA_SITES["padded"]),
+                              ("banded", "banded", BANDED_SITE)):
+        calls, total_us = in_solve[kind]
         kernels.append({
-            "name": f"dia_spmv[{group}]", "route": "cuda",
-            "source": "pflare_tpu_torch/csrc/dia_spmv.cu", "replaces": site,
-            "launches": launches["dia"], "max_abs_err": err[group],
-            "ms": times[group][0], "plain_ms": times[group][1]})
-    kernels.append({
-        "name": "banded_spmv", "route": "cuda",
-        "source": "pflare_tpu_torch/csrc/banded_spmv.cu",
-        "replaces": BANDED_SITE, "launches": launches["banded"],
-        "max_abs_err": err["banded"], "ms": times["banded"][0],
-        "plain_ms": times["banded"][1]})
+            "name": f"dia_spmv[{group}]" if kind == "dia" else "banded_spmv",
+            "route": "cuda", "source": f"pflare_tpu_torch/csrc/{kind}_spmv.cu",
+            "replaces": site, "launches": launches[kind],
+            "launches_2048": launches2k[kind],
+            "launches_per_iteration": launches2k[kind] / 10,
+            "max_abs_err": err[group],
+            **{k: timed[group][0][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "solve_us_per_call_2048": total_us / calls if calls else None,
+            "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

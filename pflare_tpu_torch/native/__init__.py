@@ -1,11 +1,11 @@
-"""Host setup kernels: ``pflare_tpu/native/kernels.cpp`` through ctypes.
+"""Host setup kernels: ``native/kernels.cpp`` through ctypes.
 
-Both packages share the one C++ source.  It is compiled here by path
-(importing ``pflare_tpu`` would pull in jax) into this package's own
-``_build`` directory at first use, and rebuilt when the source is newer.
-Every entry point returns None when no compiler is available; its caller
-then takes the numpy fallback, which computes the same result.  These are
-host setup kernels, not device work.
+The C++ source is this package's own copy of the reference's host
+kernels (same functions, same C interface).  It is compiled with g++ into
+this package's ``_build`` directory at first use, and rebuilt when the
+source is newer.  Every entry point returns None when no compiler is
+available; its caller then takes the numpy fallback, which computes the
+same result.  These are host setup kernels, not device work.
 """
 
 from __future__ import annotations
@@ -20,8 +20,7 @@ import numpy as np
 import scipy.sparse as sp
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.normpath(os.path.join(_HERE, "..", "..", "pflare_tpu",
-                                       "native", "kernels.cpp"))
+SOURCE = os.path.join(_HERE, "kernels.cpp")
 BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 
 _LIB = None

@@ -27,8 +27,6 @@ TILE_ROWS = 128
 # The reference's size envelope (its one-hot blocks had to fit TPU VMEM);
 # kept so both packages choose the same container for every operator.
 _ENVELOPE_BYTES = 12 * 1024 * 1024
-# shared memory one block may use on Hopper: the kernel stages 2W values
-SMEM_LIMIT = 232448
 KERNEL_LAUNCHES = 0  # launches of csrc/banded_spmv.cu since the last reset
 
 
@@ -69,10 +67,9 @@ def banded_spmv_cuda(data, lcols, x, n: int, n_cols: int, w: int, W: int):
     if tuple(x.shape) != (n_cols,) or n_pad % TILE_ROWS or n_pad < n:
         raise ValueError(f"banded_spmv_cuda: x {tuple(x.shape)} for "
                          f"n_cols={n_cols}, n_pad={n_pad}, n={n}")
-    smem = 2 * W * data.element_size()
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"banded_spmv_cuda: window of {smem} bytes exceeds "
-                         f"the {SMEM_LIMIT} bytes of shared memory")
+    if data.data_ptr() % 16 or lcols.data_ptr() % 16:
+        raise ValueError("banded_spmv_cuda: data and lcols must be 16-byte "
+                         "aligned (the kernel reads four rows at a time)")
     y = torch.empty(n, dtype=data.dtype, device=data.device)
     cuda.launch("banded_spmv", data.dtype, data.data_ptr(), lcols.data_ptr(),
                 x.data_ptr(), y.data_ptr(), n, n_pad, n_cols, K, w, W,

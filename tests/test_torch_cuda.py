@@ -14,6 +14,7 @@ import pflare_tpu_torch as tpf
 from pflare_tpu_torch.sparse import DIA, BandedSpMV
 from pflare_tpu_torch.sparse import banded as tbanded
 from pflare_tpu_torch.sparse import dia as tdia
+from torch_cases import masked_level1
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -42,9 +43,8 @@ def _dia_cases():
     return out
 
 
-def _band_cases():
-    rng = np.random.default_rng(1)
-    n, w = 1200, 37
+def _random_band(n, w, seed):
+    rng = np.random.default_rng(seed)
     rows, cols = [], []
     for i in range(n):
         c = np.clip(i + rng.integers(-w, w + 1, size=rng.integers(1, 9)),
@@ -54,7 +54,15 @@ def _band_cases():
     B = sp.csr_matrix((rng.standard_normal(len(rows)), (rows, cols)),
                       shape=(n, n))
     B.sum_duplicates()
-    return [tpf.adv_diff_2d(64), B]
+    return B
+
+
+def _band_cases():
+    """adv 64^2, a random band, the masked level-1 A_ff of the 128^2 main
+    path (10,281 rows) and a random band of 1,203 rows: the last two have
+    n not a multiple of the kernel's four rows per thread."""
+    return [tpf.adv_diff_2d(64), _random_band(1200, 37, 1), masked_level1(),
+            _random_band(1203, 150, 4)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
@@ -89,6 +97,29 @@ def test_wrappers_refuse_bad_input_on_card():
         D.matvec(torch.zeros(32 * 32, dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):
         D.matvec(torch.zeros(7, dtype=torch.float32, device=dev))
+
+
+def test_banded_wrapper_refuses_misaligned_views():
+    """The banded kernel reads four rows at a time in 16-byte pieces, so
+    its wrapper refuses data or lcols that start off a 16-byte boundary."""
+    dev = _card()
+    M = BandedSpMV.from_scipy(_random_band(1200, 37, 1),
+                              dtype=torch.float32).to(dev)
+    x = torch.zeros(M.n_cols, dtype=torch.float32, device=dev)
+    K, n_pad = M.data.shape
+    for name in ("data", "lcols"):
+        t = getattr(M, name)
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(K, n_pad)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        B = BandedSpMV(view if name == "data" else M.data,
+                       view if name == "lcols" else M.lcols,
+                       M.n, M.n_cols, M.w, M.W)
+        launches = tbanded.KERNEL_LAUNCHES
+        with pytest.raises(ValueError, match="aligned"):
+            B.matvec(x)
+        assert tbanded.KERNEL_LAUNCHES == launches
 
 
 def test_solve_goes_through_both_kernels():

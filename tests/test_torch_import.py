@@ -10,6 +10,7 @@ import torch
 
 import pflare_tpu
 import pflare_tpu_torch
+from pflare_tpu_torch import cuda, native
 
 torch.set_num_threads(1)
 
@@ -32,6 +33,18 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_compiled_sources_lie_inside_the_port():
+    """Every source the port compiles or opens at runtime is its own: the
+    host C++ kernels and the CUDA sources, none of the JAX package's."""
+    pkg = os.path.realpath(os.path.dirname(pflare_tpu_torch.__file__))
+    paths = [native.SOURCE, cuda.CSRC]
+    paths += [os.path.join(cuda.CSRC, name + ".cu") for name in cuda.KERNELS]
+    for path in paths:
+        path = os.path.realpath(path)
+        assert os.path.commonpath([pkg, path]) == pkg, path
+        assert os.path.exists(path), path
 
 
 def test_generators_match_reference_bitwise():

@@ -20,6 +20,7 @@ from pflare_tpu_torch.sparse import DIA, ELL, TELL, BandedSpMV
 from pflare_tpu_torch.sparse import banded as tbanded
 from pflare_tpu_torch.sparse import dia as tdia
 from pflare_tpu_torch.air.fullspace import make_op
+from torch_cases import masked_level1
 
 torch.set_num_threads(1)
 
@@ -114,11 +115,16 @@ def test_dia_plain_matches_jax_fused_pallas(monkeypatch):
         assert np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref) < 1e-6
 
 
+def _with_x(A, seed):
+    return A, np.random.default_rng(seed).standard_normal(A.shape[1])
+
+
 BAND_CASES = {
     "adv64": lambda: (adv_diff_2d(64),
                       np.random.default_rng(0).standard_normal(4096)),
     "random_band": lambda: (_band_matrix(1200, 37, 1),
                             np.random.default_rng(2).standard_normal(1200)),
+    "masked_level1": lambda: _with_x(masked_level1(), seed=3),
 }
 
 
@@ -211,26 +217,31 @@ def test_dia_kernel_emulation_matches_plain(case):
     assert torch.equal(y_emul, y_plain)
 
 
-def _emulate_banded_kernel(M: BandedSpMV, x):
-    """csrc/banded_spmv.cu: one block per 128-row tile stages the window
-    s_x[l] = x[base + l], base = (row0 // W) * W - w, zero outside
-    [0, n_cols); each thread then gathers s_x[lcols[k, row]]."""
+def _emulate_banded_kernel(M: BandedSpMV, x, rows_per_thread=4):
+    """csrc/banded_spmv.cu: thread t owns rows r0 = 4t .. 4t + 3 (threads
+    with r0 >= n return).  They lie in one 128-row tile, so they share one
+    window base, (tile row0 // W) * W - w.  For each slot k in order the
+    thread reads its rows' data and lcols (all inside n_pad), forms the
+    absolute column c = base + lcols, and adds data * x[c] unless data is
+    0 or c lies outside [0, n_cols); rows >= n are not stored."""
     K, n_pad = M.data.shape
-    y = torch.empty(M.n, dtype=M.data.dtype)
-    for row0 in range(0, M.n, tbanded.TILE_ROWS):
-        base = (row0 // M.W) * M.W - M.w
-        j = base + torch.arange(2 * M.W)
-        ok = (j >= 0) & (j < M.n_cols)
-        s_x = torch.where(ok, x[j.clamp(0, M.n_cols - 1)],
-                          torch.zeros((), dtype=x.dtype))
-        rows = torch.arange(row0, min(row0 + tbanded.TILE_ROWS, M.n))
-        acc = torch.zeros(len(rows), dtype=M.data.dtype)
-        for k in range(K):
-            lc = M.lcols[k, rows].long()
-            assert int(lc.min()) >= 0 and int(lc.max()) < 2 * M.W
-            acc = acc + M.data[k, rows] * s_x[lc]
-        y[rows] = acc
-    return y
+    V = rows_per_thread
+    assert tbanded.TILE_ROWS % V == 0 and n_pad % V == 0
+    r0 = torch.arange(0, M.n, V)
+    rows = r0[:, None] + torch.arange(V)
+    assert int(rows.max()) < n_pad
+    tile0 = r0 - r0 % tbanded.TILE_ROWS
+    assert torch.equal(rows // tbanded.TILE_ROWS * tbanded.TILE_ROWS,
+                       tile0[:, None].expand_as(rows))
+    base = (tile0 // M.W * M.W - M.w)[:, None]
+    acc = torch.zeros(rows.shape, dtype=M.data.dtype)
+    for k in range(K):
+        d = M.data[k, rows]
+        c = base + M.lcols[k, rows].long()
+        take = (d != 0) & (c >= 0) & (c < M.n_cols)
+        xv = x[c.clamp(0, M.n_cols - 1)]
+        acc = torch.where(take, acc + d * xv, acc)
+    return acc.reshape(-1)[:M.n]
 
 
 @pytest.mark.parametrize("case", sorted(BAND_CASES))
