@@ -11,10 +11,12 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
 3. main path at 512^2, f32: ``PCAIR.setup`` on the host, upload;
 4. each kernel against its plain PyTorch version on the card, at the
    main path's shapes (the 512^2 hierarchy's own DIA and banded
-   operators) and on the test cases, in f32 and f64; then kernel, plain
+   operators) and on the test cases, in f32 and f64; the per-launch
+   floor (graph replay of a one-element add); then kernel, plain
    version and the one PyTorch call of the same product (a cuSPARSE CSR
-   ``A @ x``, the yardstick ``library_ms``) timed at the 512^2 shapes
-   (see ``measure``);
+   ``A @ x``, the yardstick ``library_ms``) timed at the 512^2 shapes:
+   the top A, the DIA operators of level 0 and the banded ones (see
+   ``measure``);
 5. ``solve_device(b, max_it=10, ksp="richardson")`` with every kernel
    launch counter at 0 before it: convergence to rtol 1e-5, the true
    residual against scipy, and both kernels launched;
@@ -22,11 +24,12 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
    x0 = 1 with a zero RHS, rtol 1e-10, <= 6 iterations;
 7. the main path at 2048^2, with 10 levels so that its coarsest grid
    stays near the 512^2 path's size, with the launch counters at 0
-   before it and both kernels launched; then one more solve under
-   torch.profiler for each kernel's device time per call in the solve;
-8. each kernel against its plain version (f32) on every DIA and banded
-   operator of the 2048^2 hierarchy, and the timings of phase 4 at the
-   2048^2 shapes.
+   before it and both kernels launched; then, after every timed solve,
+   one more 512^2 and one more 2048^2 solve under torch.profiler for
+   each kernel's device time per call in the solve;
+8. each kernel against its plain version (f32 and f64) on every DIA and
+   banded operator of the 2048^2 hierarchy, and the timings of phase 4
+   at the 2048^2 shapes.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -172,8 +175,8 @@ def main() -> int:
     t0 = time.perf_counter()
     require(native.get_lib() is not None, "host C++ kernels failed to build")
     t_host = time.perf_counter() - t0
-    print(f"# build: CUDA kernels {t_cuda:.3f} s, host C++ kernels "
-          f"{t_host:.3f} s")
+    print(f"# build: CUDA kernels {t_cuda:.3f} s (in parallel), host C++ "
+          f"kernels {t_host:.3f} s")
 
     # ~~~~~~~~~~ 3. main path setup at 512^2 ~~~~~~~~~~
     A512 = tpf.adv_diff_2d(512)
@@ -254,11 +257,12 @@ def main() -> int:
             return tdia.dia_spmv_plain(M.data, M.offsets, x, *M.shape)
         return tbanded.banded_spmv_plain(M.data, M.lcols, x, M.n, M.w, M.W)
 
-    def copy_op(M):
+    def copy_op(M, dtype=None):
+        """A copy of a device operator in its own storage, in ``dtype``."""
+        data = M.data.to(dtype or M.dtype, copy=True)
         if isinstance(M, DIA):
-            return DIA(M.offsets, M.data.clone(), M.shape)
-        return BandedSpMV(M.data.clone(), M.lcols.clone(), M.n, M.n_cols,
-                          M.w, M.W)
+            return DIA(M.offsets, data, M.shape)
+        return BandedSpMV(data, M.lcols.clone(), M.n, M.n_cols, M.w, M.W)
 
     def measure(label, op):
         """Kernel, plain version and the cuSPARSE CSR product ``A @ x`` of
@@ -322,6 +326,43 @@ def main() -> int:
               + (f"; TELL plain gather {tell_ms:.6f} ms" if banded else ""))
         return row
 
+    def level0_dia(dhier, prefix):
+        """The DIA operators of level 0 (the masked A_ff, A_fc, R, P)."""
+        lev = dhier.levels[0]
+        found = [(f"{prefix} level 0 {k}", lev[k])
+                 for k in ("A_ff", "A_fc", "R", "P")
+                 if isinstance(lev[k], DIA)]
+        require(found, f"{prefix}: level 0 has no DIA operator")
+        return found
+
+    def profile_solve(pcx, bx, label):
+        """One more warm solve under torch.profiler: each kernel's calls
+        and device time in it, and the device's busy and idle shares."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            device_sync_read(*pcx.solve_device(bx, max_it=10,
+                                               ksp="richardson"))
+            t_prof = time.perf_counter() - t0
+        found = {"dia": [0, 0.0], "banded": [0, 0.0]}
+        busy_us = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA:  # kernels, copies, sets
+                busy_us += evt.self_device_time_total
+            for kind in found:
+                if f"{kind}_spmv_kernel" in evt.key:
+                    found[kind][0] += evt.count
+                    found[kind][1] += evt.device_time_total
+        print(f"# {label} profiled solve: wall {t_prof:.4f} s, device busy "
+              f"{busy_us / 1e3:.3f} ms, idle share "
+              f"{1 - busy_us / 1e6 / t_prof:.1%}; " + ", ".join(
+                  f"{kind} kernel {c} calls, {t / 1e3:.3f} ms, "
+                  f"{t / c if c else float('nan'):.2f} us a call"
+                  for kind, (c, t) in found.items()))
+        return {kind: t / c if c else None for kind, (c, t) in found.items()}
+
     def banded_targets(dhier):
         """The largest banded A_ff or A_fc, where one is banded (at 2048^2
         none is: their K * W exceeds the banded envelope), and the largest
@@ -337,8 +378,13 @@ def main() -> int:
         require("P" in found, "the hierarchy has no banded P")
         return [found[key] for key in ("A", "P") if key in found]
 
+    one = torch.zeros(1, device=dev)
+    floor_ms = graph_ms(torch, [lambda: one + 1])
+    print(f"# per-launch floor: graph replay of a one-element add "
+          f"{floor_ms:.6f} ms a call")
+    dia_512 = [("512^2 top A", dh.top)] + level0_dia(dh, "512^2")
     timed = {
-        "aligned": [measure("512^2 top A", dh.top)],
+        "aligned": [measure(label, op) for label, op in dia_512],
         "padded": [measure("500^2 A", DIA.from_scipy(
             A500, dtype=torch.float32).to(dev))],
         "banded": [measure("512^2 " + label, op)
@@ -439,30 +485,9 @@ def main() -> int:
     require(launches2k["dia"] > 0 and launches2k["banded"] > 0,
             f"a kernel of the 2048^2 path was not launched: {launches2k}")
 
-    # each kernel's device time per call inside the solve, by the profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        device_sync_read(*pc2k.solve_device(b2k, max_it=10,
-                                            ksp="richardson"))
-        t_prof = time.perf_counter() - t0
-    in_solve = {"dia": [0, 0.0], "banded": [0, 0.0]}
-    busy_us = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:   # kernels, copies, sets
-            busy_us += evt.self_device_time_total
-        for kind in in_solve:
-            if f"{kind}_spmv_kernel" in evt.key:
-                in_solve[kind][0] += evt.count
-                in_solve[kind][1] += evt.device_time_total
-    print(f"# 2048^2 profiled solve: wall {t_prof:.4f} s, device busy "
-          f"{busy_us / 1e3:.3f} ms, idle share "
-          f"{1 - busy_us / 1e6 / t_prof:.1%}; " + ", ".join(
-              f"{kind} kernel {c} calls, {t / 1e3:.3f} ms, "
-              f"{t / c if c else float('nan'):.2f} us a call"
-              for kind, (c, t) in in_solve.items()))
+    # profiled last: a profiler session can slow the launches after it
+    us_512 = profile_solve(pc, b, "512^2")
+    us_2048 = profile_solve(pc2k, b2k, "2048^2")
 
     # ~~~~~~~~~~ 8. kernels at the 2048^2 shapes ~~~~~~~~~~
     ops2k = [("2048^2 top A", dh2k.top)]
@@ -474,19 +499,22 @@ def main() -> int:
     for label, op in ops2k:
         if not isinstance(op, (DIA, BandedSpMV)):
             continue
-        x = torch.as_tensor(rng.standard_normal(op.shape[1]),
-                            dtype=op.dtype, device=dev)
-        y, ref = op.matvec(x), plain_matvec(op, x)
-        torch.cuda.synchronize()
-        rel = float((y - ref).norm() / ref.norm())
-        require(rel <= TOL["float32"], f"{label}: kernel vs plain relative "
-                f"error {rel:.3e}")
         group = "aligned" if isinstance(op, DIA) else "banded"
-        err[group] = max(err[group], float((y - ref).abs().max()))
-        print(f"# check {label} {type(op).__name__} float32 shape "
-              f"{op.shape} rel err {rel:.3e}")
+        for M in (op, copy_op(op, torch.float64)):
+            name = str(M.dtype).split(".")[-1]
+            x = torch.as_tensor(rng.standard_normal(M.shape[1]),
+                                dtype=M.dtype, device=dev)
+            y, ref = M.matvec(x), plain_matvec(M, x)
+            torch.cuda.synchronize()
+            rel = float((y - ref).norm() / ref.norm())
+            require(rel <= TOL[name], f"{label} {name}: kernel vs plain "
+                    f"relative error {rel:.3e}")
+            err[group] = max(err[group], float((y - ref).abs().max()))
+            print(f"# check {label} {type(M).__name__} {name} shape "
+                  f"{M.shape} rel err {rel:.3e}")
     A2000 = DIA.from_scipy(tpf.adv_diff_2d(2000), dtype=torch.float32).to(dev)
-    timed["aligned"].insert(0, measure("2048^2 top A", dh2k.top))
+    dia_2k = [("2048^2 top A", dh2k.top)] + level0_dia(dh2k, "2048^2")
+    timed["aligned"][:0] = [measure(label, op) for label, op in dia_2k]
     timed["padded"].insert(0, measure("2000^2 A", A2000))
     timed["banded"][:0] = [measure("2048^2 " + label, op)
                            for label, op in banded_targets(dh2k)]
@@ -495,18 +523,20 @@ def main() -> int:
     for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
                               ("padded", "dia", DIA_SITES["padded"]),
                               ("banded", "banded", BANDED_SITE)):
-        calls, total_us = in_solve[kind]
         kernels.append({
             "name": f"dia_spmv[{group}]" if kind == "dia" else "banded_spmv",
             "route": "cuda", "source": f"pflare_tpu_torch/csrc/{kind}_spmv.cu",
             "replaces": site, "launches": launches[kind],
             "launches_2048": launches2k[kind],
             "launches_per_iteration": launches2k[kind] / 10,
+            "launches_per_iteration_512": launches[kind] / 10,
             "max_abs_err": err[group],
             **{k: timed[group][0][k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
-            "solve_us_per_call_2048": total_us / calls if calls else None,
+            "solve_us_per_call_512": us_512[kind],
+            "solve_us_per_call_2048": us_2048[kind],
+            "launch_floor_ms": floor_ms,
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ without nvcc or a card imports this module and never calls it.
 from __future__ import annotations
 
 import ctypes
+import concurrent.futures
 import os
 import shutil
 import subprocess
@@ -45,20 +46,25 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> str:
+def build(name: str, src: str | None = None, tag: str = "",
+          flags=()) -> tuple[str, str]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    returns the library's path."""
-    src = os.path.join(CSRC, name + ".cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    returns the library's path and nvcc's standard error ("" when the
+    library was up to date).  A ``tag`` builds ``src`` (another source with
+    the C interface of ``<name>``, by default ``csrc/<name>.cu``) with the
+    extra nvcc ``flags`` into ``lib<name>_<tag>.so`` beside the others, for
+    tools that time a variant of a kernel."""
+    src = src or os.path.join(CSRC, name + ".cu")
+    out = os.path.join(BUILD_DIR, f"lib{name}{'_' + tag if tag else ''}.so")
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
-        return out
+        return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     # compile to a private name and rename, so a concurrent reader never
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, src, "-o", tmp],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, src, "-o", tmp],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
@@ -66,24 +72,30 @@ def build(name: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out
+    return out, proc.stderr
 
 
 def build_all() -> float:
-    """Build every kernel library; returns the seconds it took."""
+    """Build every kernel library, one nvcc for each source, all started
+    together, and load them; returns the seconds it took."""
     t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build, KERNELS))  # re-raises a failed build
     for name in KERNELS:
         load(name)
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built at first use).  It
-    exports ``<name>_f32`` and ``<name>_f64`` with the argument codes of
-    ``_EXPORTS``, and ``<name>_error_string``, which names a code."""
-    lib = _LIBS.get(name)
+def load(name: str, src: str | None = None, tag: str = "",
+         flags=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built at first use), or
+    of a tagged build (see ``build``).  It exports ``<name>_f32`` and
+    ``<name>_f64`` with the argument codes of ``_EXPORTS``, and
+    ``<name>_error_string``, which names a code."""
+    key = f"{name}_{tag}" if tag else name
+    lib = _LIBS.get(key)
     if lib is None:
-        lib = ctypes.CDLL(build(name))
+        lib = ctypes.CDLL(build(name, src, tag, flags)[0])
         for suffix in ("_f32", "_f64"):
             fn = getattr(lib, name + suffix)
             fn.restype = ctypes.c_int
@@ -91,15 +103,16 @@ def load(name: str) -> ctypes.CDLL:
         err = getattr(lib, name + "_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
 
 
-def launch(name: str, dtype, *args):
+def launch(name: str, dtype, *args, lib: ctypes.CDLL | None = None):
     """Call the ``dtype`` (torch.float32 or torch.float64) entry point of
-    kernel ``name`` and raise if it returns a CUDA error."""
+    kernel ``name`` (in ``lib``, a tagged build from ``load``, if given)
+    and raise if it returns a CUDA error."""
     suffix = {torch.float32: "_f32", torch.float64: "_f64"}[dtype]
-    lib = load(name)
+    lib = lib or load(name)
     rc = getattr(lib, name + suffix)(*args)
     if rc != 0:
         msg = getattr(lib, name + "_error_string")(rc).decode()

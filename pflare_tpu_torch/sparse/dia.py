@@ -23,6 +23,10 @@ from .dtypes import numpy_dtype
 
 MAX_OFFSETS = 16     # the kernel takes its offsets by value
 KERNEL_LAUNCHES = 0  # launches of csrc/dia_spmv.cu since the last reset
+# csrc/dia_spmv.cu's grouping (kThreads, Chunk<T>::rows): a block of
+# BLOCK_THREADS threads, each owning ROWS_PER_THREAD consecutive rows
+BLOCK_THREADS = 256
+ROWS_PER_THREAD = {torch.float32: 4, torch.float64: 2}
 
 
 def dia_spmv_plain(data, offsets, x, n_rows: int, n_cols: int):
@@ -42,7 +46,10 @@ def dia_spmv_plain(data, offsets, x, n_rows: int, n_cols: int):
 def dia_spmv_cuda(data, offsets, x, n_rows: int, n_cols: int):
     """Launch ``csrc/dia_spmv.cu`` on PyTorch's current stream (no
     synchronisation).  ``data`` is ``[K, n_rows]``, ``x`` ``[n_cols]``,
-    both contiguous CUDA tensors of one float dtype."""
+    both contiguous CUDA tensors of one float dtype, at any alignment: the
+    kernel reads 16 bytes at a time where data is 16-byte aligned and
+    n_rows a multiple of its rows per thread, and one value at a time
+    otherwise."""
     global KERNEL_LAUNCHES
     K = len(offsets)
     if not (data.is_cuda and x.is_cuda and data.device == x.device):

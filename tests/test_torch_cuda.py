@@ -14,7 +14,8 @@ import pflare_tpu_torch as tpf
 from pflare_tpu_torch.sparse import DIA, BandedSpMV
 from pflare_tpu_torch.sparse import banded as tbanded
 from pflare_tpu_torch.sparse import dia as tdia
-from torch_cases import masked_level1
+from torch_cases import (LEVEL0_OPERATORS, dia_odd_rows, masked_level0,
+                         masked_level1)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -88,6 +89,66 @@ def test_kernels_match_plain_on_card(dtype, tol):
         y = M.matvec(x)
         torch.cuda.synchronize()
         assert float((y - ref).norm() / ref.norm()) < tol
+
+
+def _new_dia_cases():
+    """n_rows = 3001, 3002, 3003 (1, 2 and 3 mod 4: the scalar
+    instantiation) and the masked level-0 operators of the 128^2 main path
+    (16,384 rows: the vector instantiation)."""
+    return ([dia_odd_rows(n, seed=n) for n in (3001, 3002, 3003)]
+            + [masked_level0(name) for name in LEVEL0_OPERATORS])
+
+
+@pytest.mark.parametrize("view", [False, True],
+                         ids=["own_storage", "view_off_16_bytes"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-13)])
+def test_dia_kernel_any_rows_and_base_on_card(dtype, tol, view):
+    """The DIA kernel takes any n_rows and any base: data in its own
+    storage goes to the vector instantiation when n_rows is a multiple of
+    the rows a thread owns, and to the scalar one otherwise; data in a view
+    that starts one element past a 16-byte boundary always goes to the
+    scalar one.  Every call launches the kernel (no ValueError, no plain
+    fallback) and agrees with the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    for A in _new_dia_cases():
+        D = DIA.from_scipy(A, dtype=dtype).to(dev)
+        K, n = D.data.shape
+        if view:
+            buf = torch.zeros(K * n + 1, dtype=dtype, device=dev)
+            data = buf[1:].view(K, n)
+            data.copy_(D.data)
+            assert data.is_contiguous() and data.data_ptr() % 16
+            D = DIA(D.offsets, data, D.shape)
+        else:
+            assert D.data.data_ptr() % 16 == 0
+        x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=dtype,
+                            device=dev)
+        launches = tdia.KERNEL_LAUNCHES
+        y = D.matvec(x)
+        assert tdia.KERNEL_LAUNCHES == launches + 1
+        ref = tdia.dia_spmv_plain(D.data, D.offsets, x, *D.shape)
+        torch.cuda.synchronize()
+        assert float((y - ref).norm() / ref.norm()) < tol
+
+
+def test_dia_kernel_64bit_indices_on_card():
+    """An offset of 2^31 does not fit the kernel's 32-bit indices, so it
+    takes the 64-bit instantiation; the offset lies past every column, so
+    it adds nothing, and the product is the plain one of the others."""
+    dev = _card()
+    rng = np.random.default_rng(4)
+    n = 5000
+    data = torch.as_tensor(rng.standard_normal((3, n)), device=dev)
+    x = torch.as_tensor(rng.standard_normal(n), device=dev)
+    D = DIA((-1, 0, 2 ** 31), data, (n, n))
+    launches = tdia.KERNEL_LAUNCHES
+    y = D.matvec(x)
+    assert tdia.KERNEL_LAUNCHES == launches + 1
+    ref = tdia.dia_spmv_plain(data[:2], (-1, 0), x, n, n)
+    torch.cuda.synchronize()
+    assert float((y - ref).norm() / ref.norm()) < 1e-13
 
 
 def test_wrappers_refuse_bad_input_on_card():

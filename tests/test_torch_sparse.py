@@ -20,7 +20,8 @@ from pflare_tpu_torch.sparse import DIA, ELL, TELL, BandedSpMV
 from pflare_tpu_torch.sparse import banded as tbanded
 from pflare_tpu_torch.sparse import dia as tdia
 from pflare_tpu_torch.air.fullspace import make_op
-from torch_cases import masked_level1
+from torch_cases import (LEVEL0_OPERATORS, dia_odd_rows, masked_level0,
+                         masked_level1)
 
 torch.set_num_threads(1)
 
@@ -79,6 +80,19 @@ def _f32_reference(A, x32):
     return Af @ np.asarray(x32, dtype=np.float64)
 
 
+def _with_x(A, seed):
+    return A, np.random.default_rng(seed).standard_normal(A.shape[1])
+
+
+# n_rows = 3001, 3002, 3003 (1, 2 and 3 mod 4) and the masked level-0
+# operators of the 128^2 main path, beside the reference's own cases
+NEW_DIA_CASES = {
+    **{f"odd{n}": (lambda n=n: _with_x(dia_odd_rows(n, seed=n), seed=n))
+       for n in (3001, 3002, 3003)},
+    **{f"level0_{name}": (lambda name=name: _with_x(masked_level0(name),
+                                                    seed=7))
+       for name in LEVEL0_OPERATORS},
+}
 DIA_CASES = {
     "n8192": lambda: _dia_case(8192),
     "n4224": lambda: _dia_case(4224),
@@ -86,6 +100,7 @@ DIA_CASES = {
                       np.random.default_rng(1).standard_normal(4096)),
     "rect": lambda: (_rect_dia(),
                      np.random.default_rng(2).standard_normal(2100)),
+    **NEW_DIA_CASES,
 }
 
 
@@ -115,8 +130,21 @@ def test_dia_plain_matches_jax_fused_pallas(monkeypatch):
         assert np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref) < 1e-6
 
 
-def _with_x(A, seed):
-    return A, np.random.default_rng(seed).standard_normal(A.shape[1])
+@pytest.mark.parametrize("case", sorted(NEW_DIA_CASES))
+def test_new_dia_cases_match_jax_fused_pallas(monkeypatch, case):
+    """f32 against the reference's fused Pallas DIA kernel in interpret
+    mode on the odd-n and masked level-0 cases (forced on below the
+    reference's size gate, as tests/test_sparse.py:212-248 does)."""
+    monkeypatch.setattr(jdia, "_FUSED_MIN_ROWS", 1024)
+    monkeypatch.setenv("PFLARE_DIA_FUSED", "force")
+    A, x = NEW_DIA_CASES[case]()
+    x32 = x.astype(np.float32)
+    J = jdia.DIA.from_scipy(A, dtype=np.float32)
+    assert J._tr is not None
+    y_ref = np.asarray(J.matvec(jnp.asarray(x32)), dtype=np.float64)
+    y = DIA.from_scipy(A, dtype=torch.float32).matvec(
+        torch.from_numpy(x32)).numpy().astype(np.float64)
+    assert np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref) < 1e-6
 
 
 BAND_CASES = {
@@ -187,34 +215,76 @@ def test_cpu_matvec_launches_no_kernel():
 
 # ~~~~~~~~~~ CPU emulations of the CUDA kernels' index arithmetic ~~~~~~~~~~
 
-def _emulate_dia_kernel(data, offsets, x, n_rows, n_cols, threads=256,
-                        blocks=7):
-    """csrc/dia_spmv.cu, one thread at a time in spirit: a grid of
-    ``blocks`` x ``threads`` walks the rows with a grid stride; each row
-    sums its offsets in order with the masked read 0 <= i+off < n_cols."""
+def _emulate_dia_kernel(data, offsets, x, n_rows, n_cols, vector=True):
+    """csrc/dia_spmv.cu, block by block.  Thread t owns the V =
+    ROWS_PER_THREAD rows from r0 = V * t (threads with r0 >= n_rows
+    return); block b the B = BLOCK_THREADS * V rows from b0 = B * b.  The
+    vector instantiation (``vector``: data 16-byte aligned, and n_rows a
+    multiple of V) reads whole groups of V rows; the scalar one masks the
+    rows past n_rows.  A block is interior when all its rows exist and its
+    x range [b0 + min(off), b0 + B + max(off)) lies in [0, n_cols): it
+    reads unmasked (asserted here); an edge block masks every x read to
+    [0, n_cols).  Each slot adds data * x in offset order, zero or not."""
+    V = tdia.ROWS_PER_THREAD[data.dtype]
+    B = tdia.BLOCK_THREADS * V
+    vector = vector and n_rows % V == 0
+    flat = data.reshape(-1)
+    zero = torch.zeros((), dtype=data.dtype)
     y = torch.empty(n_rows, dtype=data.dtype)
-    stride = blocks * threads
-    for start in range(0, n_rows, stride):
-        i = torch.arange(start, min(start + stride, n_rows))
-        acc = torch.zeros(len(i), dtype=data.dtype)
+    for b0 in range(0, n_rows, B):
+        r0 = torch.arange(b0, min(b0 + B, n_rows), V)
+        rows = r0[:, None] + torch.arange(V)
+        exist = rows < n_rows
+        if vector:
+            assert bool(exist.all())
+        edge = (b0 + B > n_rows or b0 + min(offsets) < 0
+                or b0 + B + max(offsets) > n_cols)
+        acc = torch.zeros(rows.shape, dtype=data.dtype)
         for k, off in enumerate(offsets):
-            j = i + off
-            ok = (j >= 0) & (j < n_cols)
-            xv = torch.where(ok, x[j.clamp(0, n_cols - 1)],
-                             torch.zeros((), dtype=x.dtype))
-            acc = acc + data[k, i] * xv
-        y[i] = acc
+            p = k * n_rows + rows
+            if edge:
+                d = torch.where(exist, flat[p.clamp(max=flat.numel() - 1)],
+                                zero)
+            else:
+                assert int(p.max()) < flat.numel()
+                d = flat[p]
+            c = rows + off
+            if edge:
+                ok = (c >= 0) & (c < n_cols)
+                xv = torch.where(ok, x[c.clamp(0, n_cols - 1)], zero)
+            else:
+                assert int(c.min()) >= 0 and int(c.max()) < n_cols
+                xv = x[c]
+            acc = acc + d * xv
+        y[rows[exist]] = acc[exist]
     return y
 
 
 @pytest.mark.parametrize("case", sorted(DIA_CASES))
 def test_dia_kernel_emulation_matches_plain(case):
+    """f64, the vector instantiation where n_rows allows it."""
     A, x = DIA_CASES[case]()
     D = DIA.from_scipy(A, dtype=torch.float64)
     xt = torch.from_numpy(x)
     y_plain = D.matvec(xt)
     y_emul = _emulate_dia_kernel(D.data, D.offsets, xt, *D.shape)
     assert torch.equal(y_emul, y_plain)
+
+
+@pytest.mark.parametrize("dtype,vector", [
+    (torch.float64, False), (torch.float32, True), (torch.float32, False)],
+    ids=["f64-scalar", "f32-vector", "f32-scalar"])
+@pytest.mark.parametrize("case", sorted(DIA_CASES))
+def test_dia_kernel_emulation_other_instantiations(case, dtype, vector):
+    """The scalar instantiation (an unaligned base) and the f32 grouping
+    (four rows a thread) are bit-equal to the plain version too: each
+    side rounds every product and adds in the same order."""
+    A, x = DIA_CASES[case]()
+    D = DIA.from_scipy(A, dtype=dtype)
+    xt = torch.from_numpy(x).to(dtype)
+    y_emul = _emulate_dia_kernel(D.data, D.offsets, xt, *D.shape,
+                                 vector=vector)
+    assert torch.equal(y_emul, D.matvec(xt))
 
 
 def _emulate_banded_kernel(M: BandedSpMV, x, rows_per_thread=4):

@@ -18,40 +18,22 @@ printed.  Needs one CUDA device; prints one JSON line per operator.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import os
-import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SKIP_TEST = "d[v] != T(0) && "
 
 
-def build(cuda, src_text: str, out_dir: str, tag: str) -> ctypes.CDLL:
-    src = os.path.join(out_dir, f"banded_{tag}.cu")
-    lib = os.path.join(out_dir, f"libbanded_{tag}.so")
-    with open(src, "w") as f:
-        f.write(src_text)
-    subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, src, "-o", lib],
-                   check=True)
-    dll = ctypes.CDLL(lib)
-    dll.banded_spmv_f32.restype = ctypes.c_int
-    dll.banded_spmv_f32.argtypes = [cuda._CTYPES[c]
-                                    for c in cuda._EXPORTS["banded_spmv"]]
-    return dll
-
-
-def matvec(torch, cuda, dll, M, x):
+def matvec(torch, cuda, lib, M, x):
     K, n_pad = M.data.shape
     y = torch.empty(M.n, dtype=M.data.dtype, device=M.data.device)
-    rc = dll.banded_spmv_f32(M.data.data_ptr(), M.lcols.data_ptr(),
-                             x.data_ptr(), y.data_ptr(), M.n, n_pad,
-                             M.n_cols, K, M.w, M.W,
-                             cuda.stream_handle(M.data.device))
-    if rc != 0:
-        raise RuntimeError(f"banded_spmv_f32 returned CUDA error {rc}")
+    cuda.launch("banded_spmv", M.data.dtype, M.data.data_ptr(),
+                M.lcols.data_ptr(), x.data_ptr(), y.data_ptr(), M.n, n_pad,
+                M.n_cols, K, M.w, M.W, cuda.stream_handle(M.data.device),
+                lib=lib)
     return y
 
 
@@ -104,11 +86,12 @@ def main() -> int:
     text = open(os.path.join(cuda.CSRC, "banded_spmv.cu")).read()
     if text.count(SKIP_TEST) != 1:
         raise SystemExit("the empty-slot test is not in the kernel source")
-    out_dir = os.path.join(cuda.BUILD_DIR, "banded_skip")
-    os.makedirs(out_dir, exist_ok=True)
-    libs = {"skip": build(cuda, text, out_dir, "skip"),
-            "no_skip": build(cuda, text.replace(SKIP_TEST, ""), out_dir,
-                             "no_skip")}
+    src = os.path.join(cuda.BUILD_DIR, "banded_no_skip.cu")
+    os.makedirs(cuda.BUILD_DIR, exist_ok=True)
+    with open(src, "w") as f:
+        f.write(text.replace(SKIP_TEST, ""))
+    libs = {"skip": cuda.load("banded_spmv"),
+            "no_skip": cuda.load("banded_spmv", src=src, tag="no_skip")}
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
