@@ -29,7 +29,21 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
    each kernel's device time per call in the solve;
 8. each kernel against its plain version (f32 and f64) on every DIA and
    banded operator of the 2048^2 hierarchy, and the timings of phase 4
-   at the 2048^2 shapes.
+   at the 2048^2 shapes;
+9. PCPFLAREINV, the one-level approximate inverses: (a) at 512^2, f64,
+   GMRES(30) with max_it=60 for every inverse type (POWER, ARNOLDI,
+   NEWTON and NEUMANN assembled and matrix-free, NEWTON_NO_EXTRA
+   matrix-free, ARNOLDI with sparsity order 2, JACOBI, WJACOBI, SAI,
+   ISAI) on the card and on the CPU (the plain versions): residual
+   histories equal to 1e-8 at every iteration; (b) at 2048^2, f32, the
+   default (ARNOLDI order 6, assembled) and NEWTON order 6 matrix-free,
+   right GMRES to rtol 1e-5 or 300 iterations, with the launch counters
+   at 0 before each solve: at least 2 (assembled) and 1 (matrix-free)
+   DIA launches an iteration, the true residual by scipy within 10% of
+   the reported one; the DIA kernel against its plain version on the
+   2048^2 assembled inverses and the sparsity-order-2 inverse (K = 6),
+   which ``measure`` also times at 2048^2; (c) LU as a one-level PC on
+   adv_diff_2d(64): GMRES converges in at most 2 iterations.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -54,6 +68,7 @@ DIA_SITES = {"aligned": "pflare_tpu/sparse/dia.py:311",
              "padded": "pflare_tpu/sparse/dia.py:367"}
 BANDED_SITE = "pflare_tpu/sparse/banded.py:238"
 TOL = {"float32": 1e-6, "float64": 1e-13}
+HISTORY_RTOL = 1e-8  # phase 9 (a): card against CPU residual histories
 R = 50               # calls captured in one CUDA graph
 REPLAYS = 4          # timed replays of that graph
 L2_BYTES = 50e6      # the H100's L2 cache
@@ -519,6 +534,11 @@ def main() -> int:
     timed["banded"][:0] = [measure("2048^2 " + label, op)
                            for label, op in banded_targets(dh2k)]
 
+    # ~~~~~~~~~~ 9. PCPFLAREINV ~~~~~~~~~~
+    inv_runs, t_phase9 = phase9(np, sp, torch, tpf, tdia, tbanded, dev, A512,
+                                A2k, check, measure, timed)
+    print(f"# phase 9: {t_phase9:.3f} s")
+
     kernels = []
     for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
                               ("padded", "dia", DIA_SITES["padded"]),
@@ -537,12 +557,149 @@ def main() -> int:
             "solve_us_per_call_512": us_512[kind],
             "solve_us_per_call_2048": us_2048[kind],
             "launch_floor_ms": floor_ms,
+            "pcpflareinv_2048": {
+                label: {"launches": run["launches"][kind],
+                        "iterations": run["iterations"],
+                        "launches_per_iteration":
+                            run["launches"][kind] / run["iterations"]}
+                for label, run in inv_runs.items()},
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+PHASE9_TYPES = (
+    ("POWER", False, 1), ("POWER", True, 1),
+    ("ARNOLDI", False, 1), ("ARNOLDI", True, 1),
+    ("NEWTON", False, 1), ("NEWTON", True, 1),
+    ("NEUMANN", False, 1), ("NEUMANN", True, 1),
+    ("NEWTON_NO_EXTRA", True, 1), ("ARNOLDI", False, 2),
+    ("JACOBI", False, 1), ("WJACOBI", False, 1),
+    ("SAI", False, 1), ("ISAI", False, 1))
+
+
+def phase9(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, check,
+           measure, timed):
+    """PCPFLAREINV on the card (see the module docstring, phase 9).
+    Returns the 2048^2 runs ({label: {"launches", "iterations"}}) and the
+    phase's seconds."""
+    from pflare_tpu_torch.sparse import DIA
+
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+
+    def zero_counts():
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+
+    # (a) every type at 512^2, f64, card against CPU
+    b = np.random.default_rng(0).standard_normal(A512.shape[0])
+    for itype, mf, order in PHASE9_TYPES:
+        label = (f"{itype}{' matrix-free' if mf else ' assembled'}"
+                 + (f" sparsity order {order}" if order > 1 else ""))
+        kw = dict(inverse_type=itype, matrix_free=mf,
+                  inverse_sparsity_order=order, dtype=torch.float64)
+        t0 = time.perf_counter()
+        pc = tpf.PCPFLAREINV(**kw, device=dev).setup(A512)
+        pc_cpu = tpf.PCPFLAREINV(**kw, device="cpu").setup(A512)
+        t_setup = (time.perf_counter() - t0) / 2
+        pc.upload()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = pc.solve(b, restart=30, max_it=60)
+        t_card = time.perf_counter() - t0
+        launches = counts()
+        t0 = time.perf_counter()
+        res_cpu = pc_cpu.solve(b, restart=30, max_it=60)
+        t_cpu = time.perf_counter() - t0
+        h, h_cpu = res.history, res_cpu.history
+        require(len(h) == len(h_cpu), f"512^2 {label}: {len(h)} card norms "
+                f"against {len(h_cpu)} on the CPU")
+        dev_rel = float(np.max(np.abs(h - h_cpu) / h_cpu))
+        print(f"# 512^2 f64 PCPFLAREINV {label} ({pc.inverse.kind}): host "
+              f"setup {t_setup:.3f} s, GMRES {res.iterations} its, relative "
+              f"residual {h[-1] / h[0]:.6e}, card {t_card:.4f} s, CPU "
+              f"{t_cpu:.4f} s, history max relative difference "
+              f"{dev_rel:.3e}, launches {launches}")
+        require(dev_rel <= HISTORY_RTOL, f"512^2 {label}: card and CPU "
+                f"histories differ by {dev_rel:.3e} > {HISTORY_RTOL}")
+        require(launches["dia"] >= res.iterations, f"512^2 {label}: "
+                f"{launches['dia']} DIA launches in {res.iterations} its")
+        if order == 2:
+            K6 = pc.get_inverse_mat()
+            require(isinstance(K6, DIA) and len(K6.offsets) == 6,
+                    "the 512^2 sparsity-order-2 inverse is not a K=6 DIA")
+            check(K6, "aligned", "512^2 sparsity-order-2 inverse DIA K=6")
+
+    # (b) 2048^2, f32: the default and NEWTON matrix-free
+    A2k32 = A2k.astype(np.float32)
+    b2k = np.random.default_rng(0).standard_normal(A2k.shape[0])
+    runs = {}
+    for label, kw, per_it in (
+            ("arnoldi_assembled", {}, 2),
+            ("newton_matrix_free", dict(inverse_type="NEWTON",
+                                        matrix_free=True), 1)):
+        pc = tpf.PCPFLAREINV(**kw, dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        pc.setup(A2k32)
+        t_setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pc.upload()
+        torch.cuda.synchronize()
+        t_upload = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        res = pc.solve(b2k, side="right", rtol=1e-5, max_it=300)
+        x = res.x.double().cpu().numpy()
+        t_solve = time.perf_counter() - t0
+        launches = counts()
+        reported = res.residual_norms[-1] / float(np.linalg.norm(b2k))
+        true = float(np.linalg.norm(A2k @ x - b2k) / np.linalg.norm(b2k))
+        print(f"# 2048^2 f32 PCPFLAREINV {label} ({pc.inverse.kind}): host "
+              f"setup {t_setup:.3f} s, upload {t_upload:.3f} s, right GMRES "
+              f"{res.iterations} its (converged {res.converged}), solve "
+              f"{t_solve:.4f} s to completion, relative residual "
+              f"{reported:.6e} reported, {true:.6e} true (scipy, f64), "
+              f"launches {launches}, DIA launches an iteration "
+              f"{launches['dia'] / res.iterations:.3f}")
+        require(np.isfinite(x).all() and abs(true - reported)
+                <= 0.1 * reported, f"2048^2 {label}: true residual {true:.3e}"
+                f" against {reported:.3e} reported")
+        require(launches["dia"] >= per_it * res.iterations, f"2048^2 "
+                f"{label}: {launches['dia']} DIA launches in "
+                f"{res.iterations} its")
+        runs[label] = {"launches": launches, "iterations": res.iterations}
+        M = pc.get_inverse_mat()
+        if M is not None:
+            require(isinstance(M, DIA), "the 2048^2 inverse is not DIA")
+            check(M, "aligned", f"2048^2 {label} inverse DIA "
+                  f"K={len(M.offsets)}")
+        del pc
+    pc = tpf.PCPFLAREINV(inverse_sparsity_order=2, dtype=torch.float32,
+                         device=dev).setup(A2k32)
+    K6 = pc.get_inverse_mat()
+    require(isinstance(K6, DIA) and len(K6.offsets) == 6,
+            "the 2048^2 sparsity-order-2 inverse is not a K=6 DIA")
+    check(K6, "aligned", "2048^2 sparsity-order-2 inverse DIA K=6")
+    timed["aligned"].append(measure("2048^2 sparsity-order-2 inverse", K6))
+    del pc, K6
+
+    # (c) LU as a one-level PC
+    A64 = tpf.adv_diff_2d(64)
+    pc = tpf.PCPFLAREINV(inverse_type="LU", dtype=torch.float64,
+                         device=dev).setup(A64)
+    res = pc.solve(np.random.default_rng(0).standard_normal(A64.shape[0]),
+                   max_it=2)
+    print(f"# 64^2 f64 PCPFLAREINV LU ({pc.inverse.kind}): GMRES "
+          f"{res.iterations} its, converged {res.converged}")
+    require(res.converged and res.iterations <= 2,
+            "LU did not converge in 2 GMRES iterations")
+    return runs, time.perf_counter() - t_phase
 
 
 def _converged_at(np, norms, rtol):

@@ -77,7 +77,8 @@ def inverse_to_fullspace(inv: Inverse, fine: np.ndarray, n: int,
         d = np.zeros(n)
         d[fine] = inv.diag
         return Inverse("diagonal", diag=d).to(device, dtype)
-    if inv.kind == "assembled":
+    if inv.kind in ("assembled", "dense"):
+        # LU's dense inv(A_ff) is embedded like any assembled inverse
         M_ext = _map_both(inv.host_csr, fine, fine, n)
         return Inverse("assembled", host_csr=M_ext,
                        coefficients=inv.coefficients).to(

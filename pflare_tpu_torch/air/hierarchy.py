@@ -15,7 +15,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..cf.splitting import SUPPORTED as CF_SUPPORTED, compute_cf_splitting
-from ..inverse.build import SUPPORTED as INV_SUPPORTED, Inverse, build_inverse
+from ..inverse.build import Inverse, build_inverse
 from ..options import AIROptions
 from ..params import ZType
 from ..sparse.ops import one_point_strongest
@@ -47,9 +47,6 @@ def check_options(opts: AIROptions):
                                         or opts.improve_z_its > 0),
         "strong_r_threshold": opts.strong_r_threshold != 0.0,
         "z_type": opts.z_type != ZType.PRODUCT,
-        "inverse_type": opts.inverse_type not in INV_SUPPORTED,
-        "coarsest_inverse_type": (opts.coarsest_inverse_type
-                                  not in INV_SUPPORTED),
         "reuse_sparsity": opts.reuse_sparsity,
     }
     bad = [k for k, v in unported.items() if v]
@@ -180,8 +177,9 @@ def _build_level(A, fine, coarse, opts: AIROptions):
         inv_Aff = _build_aff_inverse(A_ff, opts, opts.matrix_free_polys)
         # AIRG needs an ASSEMBLED inverse of A_ff for Z (reference:
         # src/AIR_Operators_Setup.F90:406-475): a matrix-free smoother's
-        # inverse is rebuilt assembled for it
-        if inv_Aff.kind in ("assembled", "diagonal"):
+        # inverse is rebuilt assembled for it (LU's dense inverse carries
+        # its host_csr)
+        if inv_Aff.kind in ("assembled", "diagonal", "dense"):
             inv_dropped = inv_Aff
         else:
             inv_dropped = _build_aff_inverse(A_ff, opts, matrix_free=False)

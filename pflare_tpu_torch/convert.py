@@ -1,9 +1,12 @@
-"""Carry a hierarchy across as numpy/scipy arrays ("weights carried across").
+"""Carry a hierarchy or an inverse across as numpy/scipy arrays ("weights
+carried across").
 
-``hierarchy_from_numpy`` builds this package's device hierarchy from a
-hierarchy given as plain arrays -- for instance one set up by the JAX
-reference and read back from it -- so the two solves can be held against
-each other on the very same operators, independent of either setup.
+``hierarchy_from_numpy`` builds this package's device hierarchy, and
+``inverse_from_numpy`` a device approximate inverse (a PCPFLAREINV's),
+from plain arrays -- for instance those of a preconditioner set up by the
+JAX reference and read back from it -- so the two solves can be held
+against each other on the very same operators, independent of either
+setup.
 """
 
 from __future__ import annotations
@@ -15,26 +18,42 @@ import torch
 from .air.fullspace import make_op
 from .air.hierarchy import DeviceHierarchy
 from .inverse.build import Inverse
+from .inverse.newton import build_newton_program
+from .params import tolerances
+from .sparse.dtypes import numpy_dtype
 
-_INVERSE_KINDS = ("diagonal", "assembled", "poly_mf", "newton_mf")
+_INVERSE_KINDS = ("diagonal", "assembled", "dense", "poly_mf", "newton_mf",
+                  "neumann_mf")
 
 
-def _inverse(spec: dict, dtype, device, op=None) -> Inverse:
+def inverse_from_numpy(spec: dict, dtype, device, op=None) -> Inverse:
     """Device Inverse from a spec dict: ``kind`` plus ``diag`` (diagonal,
-    or the scaling of a scaled matrix-free kind), ``matrix`` (the assembled
-    inverse, or the operator of a matrix-free kind when ``op`` is not
-    given), ``coefficients`` (poly_mf), ``steps`` (newton_mf, the program
-    of ``build_newton_program``) and ``scaled``."""
+    the scaling of a scaled matrix-free kind, or neumann_mf's diagonal of
+    A), ``matrix`` (the assembled or dense inverse, or the operator A of a
+    matrix-free kind when ``op`` is not given), ``coefficients``
+    (poly_mf, neumann_mf; for newton_mf the roots [wr, wi], when no
+    ``steps``), ``steps`` (newton_mf, the program of
+    ``build_newton_program``) and ``scaled``.  Operators are built with
+    ``make_op``."""
     kind = spec["kind"]
     if kind not in _INVERSE_KINDS:
         raise ValueError(f"unknown inverse kind {kind!r}")
     matrix = spec.get("matrix")
-    if kind == "assembled" and op is None:
-        op = make_op(sp.csr_matrix(matrix), dtype).to(device)
-    inv = Inverse(kind, coefficients=spec.get("coefficients"),
-                  steps=tuple(spec.get("steps", ())), diag=spec.get("diag"),
-                  scaled=bool(spec.get("scaled", False)),
-                  mat_src=None if matrix is None else sp.csr_matrix(matrix))
+    steps = tuple(spec.get("steps", ()))
+    if kind == "newton_mf" and not steps:
+        wr, wi = np.asarray(spec["coefficients"], dtype=np.float64)
+        steps = build_newton_program(
+            wr, wi, tolerances(numpy_dtype(dtype, np.float64)).zero)
+    if kind == "dense":
+        matrix = np.asarray(matrix)
+    elif matrix is not None:
+        matrix = sp.csr_matrix(matrix)
+        if op is None:
+            op = make_op(matrix, dtype).to(device)
+    inv = Inverse(kind, mat=matrix if kind == "dense" else None,
+                  coefficients=spec.get("coefficients"), steps=steps,
+                  diag=spec.get("diag"),
+                  scaled=bool(spec.get("scaled", False)))
     return inv.to(device, dtype, mat=op if kind != "diagonal" else None)
 
 
@@ -66,13 +85,14 @@ def hierarchy_from_numpy(levels, coarse_inverse: dict, dtype, device,
                                    dtype=torch.int64, device=device),
             "A_ff": A_ff,
             "A_fc": make_op(sp.csr_matrix(lv["A_fc"]), dtype).to(device),
-            "inv_Aff": _inverse(lv["inv_Aff"], dtype, device,
-                                op=(None if lv["inv_Aff"]["kind"]
-                                    == "assembled" else A_ff)),
+            "inv_Aff": inverse_from_numpy(
+                lv["inv_Aff"], dtype, device,
+                op=(None if lv["inv_Aff"]["kind"] in ("assembled", "dense")
+                    else A_ff)),
             "R": make_op(sp.csr_matrix(lv["R"]), dtype).to(device),
             "P": make_op(sp.csr_matrix(lv["P"]), dtype).to(device),
         })
     top_op = (None if top is None
               else make_op(sp.csr_matrix(top), dtype).to(device))
-    return DeviceHierarchy(out, _inverse(coarse_inverse, dtype, device),
-                           top_op)
+    return DeviceHierarchy(out, inverse_from_numpy(coarse_inverse, dtype,
+                                                   device), top_op)

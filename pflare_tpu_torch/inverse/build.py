@@ -7,36 +7,38 @@ a fixed sparsity in the native host kernels.  The result is a host
 ``Inverse`` (numpy and scipy members); ``Inverse.to`` gives the device
 form whose ``apply`` the solve calls.
 
-Ported kinds: ``diagonal``, ``assembled`` (POWER, ARNOLDI and NEWTON on a
-fixed sparsity), ``poly_mf`` (POWER/ARNOLDI matrix-free, Horner) and
-``newton_mf`` (NEWTON matrix-free).  The other inverse types wait for a
-later slice.
+Kinds: ``diagonal`` (JACOBI, WJACOBI, order-0 polynomials), ``assembled``
+(POWER, ARNOLDI, NEWTON and NEUMANN on a fixed sparsity; SAI, ISAI),
+``dense`` (LU), ``poly_mf`` (POWER/ARNOLDI matrix-free, Horner),
+``newton_mf`` (NEWTON matrix-free) and ``neumann_mf`` (NEUMANN
+matrix-free, Horner over v - A v / d).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 
 from ..params import InverseType, tolerances
-from ..sparse import ELL
+from ..sparse import ELL, SparsityPattern
+from ..sparse.spgemm import FixedSparsityPolyPlan
 from .gmres_poly import coefficients_arnoldi, coefficients_power, horner
 from .newton import build_newton_program, newton_apply, newton_roots
-
-SUPPORTED = (InverseType.POWER, InverseType.ARNOLDI, InverseType.NEWTON,
-             InverseType.NEWTON_NO_EXTRA)
+from .sai import sai_inverse
 
 
 class Inverse:
     """An applier for an approximate inverse.
 
-    kind: 'diagonal' | 'assembled' | 'poly_mf' | 'newton_mf'.  ``scaled``
-    marks right diagonal scaling q(D^-1 A) D^-1 (reference:
-    src/Gmres_Poly.F90:1375-1414).  On the host ``diag`` and
-    ``coefficients`` are numpy arrays and the operator is the scipy
-    ``mat_src``; after ``to`` they are tensors and ``mat`` is a device
-    container.
+    kind: 'diagonal' | 'assembled' | 'dense' | 'poly_mf' | 'newton_mf' |
+    'neumann_mf'.  ``scaled`` marks right diagonal scaling q(D^-1 A) D^-1
+    (reference: src/Gmres_Poly.F90:1375-1414).  On the host ``diag`` and
+    ``coefficients`` are numpy arrays, the operator is the scipy
+    ``mat_src`` and a dense inverse is the array ``mat``; after ``to`` they
+    are tensors and ``mat`` is a device container (a dense tensor for
+    'dense').
     """
 
     def __init__(self, kind, mat=None, coefficients=None, steps=(),
@@ -54,18 +56,22 @@ class Inverse:
 
     def to(self, device, dtype, mat=None) -> "Inverse":
         """Device form with float tensors of ``dtype``.  ``mat`` supplies the
-        device operator (the full-space level operator); without it an
-        assembled or matrix-free inverse runs on a gather ELL of its host
-        matrix, as the reference's lazily built operator does
+        device operator (the full-space level operator, or the Krylov
+        operator a matrix-free inverse shares); without it an assembled or
+        matrix-free inverse runs on a gather ELL of its host matrix, as the
+        reference's lazily built operator does
         (pflare_tpu/inverse/build.py:67-74)."""
-        if mat is None and self.kind != "diagonal":
-            src = self.mat_src if self.mat_src is not None else self.host_csr
-            mat = ELL.from_scipy(src, dtype=dtype).to(device)
 
         def tensor(a):
             if a is None:
                 return None
             return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+        if self.kind == "dense":
+            mat = tensor(self.mat)
+        elif mat is None and self.kind != "diagonal":
+            src = self.mat_src if self.mat_src is not None else self.host_csr
+            mat = ELL.from_scipy(src, dtype=dtype).to(device)
 
         return Inverse(self.kind, mat=mat,
                        coefficients=tensor(self.coefficients),
@@ -80,6 +86,8 @@ class Inverse:
         return mv
 
     def apply(self, x):
+        if self.kind == "dense":
+            return self.mat @ x
         if self.kind == "assembled":
             return self.mat.matvec(x)
         if self.kind == "diagonal":
@@ -87,6 +95,11 @@ class Inverse:
         if self.kind == "poly_mf":
             xin = x / self.diag if self.scaled else x
             return horner(self._matvec(), self.coefficients, xin)
+        if self.kind == "neumann_mf":
+            diag = self.diag
+            mv = self.mat.matvec
+            return horner(lambda v: v - mv(v) / diag, self.coefficients,
+                          x / diag)
         if self.kind == "newton_mf":
             xin = x / self.diag if self.scaled else x
             return newton_apply(self._matvec(), self.steps, xin)
@@ -94,6 +107,18 @@ class Inverse:
 
     def __call__(self, x):
         return self.apply(x)
+
+    @property
+    def num_matvecs(self):
+        """Matvecs per application (for stats/cycle complexity)."""
+        if self.kind in ("assembled", "diagonal", "dense"):
+            return 1
+        if self.kind in ("poly_mf", "neumann_mf"):
+            return int(self.coefficients.shape[0]) - 1
+        if self.kind == "newton_mf":
+            return sum(2 if s[0] == "cc" else 1
+                       for s in self.steps if s[0] != "real_last")
+        return 0
 
 
 def _clamp_orders(n_global, poly_order, sparsity_order):
@@ -114,14 +139,57 @@ def build_inverse(A_scipy: sp.csr_matrix, inverse_type: InverseType,
     reference's coefficient reuse protocol, src/Approx_Inverse_Setup.F90:
     52-64)."""
     inverse_type = InverseType(inverse_type)
-    if inverse_type not in SUPPORTED:
-        raise NotImplementedError(
-            f"inverse type {inverse_type.name} is not ported")
     A = A_scipy
     n = A.shape[0]
     dtype = A.data.dtype
     poly_order, sparsity_order = _clamp_orders(n, poly_order, sparsity_order)
     tol = tolerances(dtype)
+
+    if inverse_type == InverseType.LU:
+        # exact dense inverse (coarse grids)
+        Minv = sla.inv(A.toarray())
+        return Inverse("dense", mat=Minv, host_csr=sp.csr_matrix(Minv))
+
+    if inverse_type in (InverseType.JACOBI, InverseType.WJACOBI):
+        d = np.asarray(A.diagonal())
+        weight = 1.0
+        if inverse_type == InverseType.WJACOBI:
+            # hypre weight 3/(4 ||D^-1/2 A D^-1/2||_inf)
+            # (reference: src/Weighted_Jacobi.F90:44-66)
+            inv_ds = np.where(np.abs(d) > 0, 1.0 / np.sqrt(np.abs(d)), 0.0)
+            Dm = sp.diags(inv_ds)
+            weight = 3.0 / (4.0 * float(np.abs(Dm @ A @ Dm).sum(axis=1).max()))
+        return Inverse("diagonal", diag=np.where(d != 0, weight / d, 0.0))
+
+    if inverse_type in (InverseType.SAI, InverseType.ISAI):
+        # PATTERN powers: value products could cancel entries exactly and
+        # make the sparsity value-dependent
+        S1 = _pattern_ones(A)
+        S = S1
+        for _ in range(sparsity_order - 1):
+            S = sp.csr_matrix(S @ S1)
+            S.data[:] = 1.0
+        M = sai_inverse(A, incomplete=(inverse_type == InverseType.ISAI),
+                        sparsity=S)
+        return Inverse("assembled", host_csr=M)
+
+    if inverse_type == InverseType.NEUMANN:
+        d = np.asarray(A.diagonal())
+        ones = np.ones(poly_order + 1)
+        if matrix_free:
+            return Inverse("neumann_mf", coefficients=ones, diag=d,
+                           mat_src=A)
+        # assembled: p(N)|_S D^-1 with N = I - D^-1 A
+        # (reference: src/Neumann_Poly.F90:177-212)
+        N = sp.csr_matrix(sp.eye(n, format="csr", dtype=A.data.dtype)
+                          - sp.diags(1.0 / d) @ A)
+        N.sort_indices()
+        plan = FixedSparsityPolyPlan(
+            SparsityPattern(N.indptr, N.indices, N.shape), poly_order,
+            sparsity_order)
+        M_host = sp.csr_matrix(plan.execute_host(N, ones) @ sp.diags(1.0 / d))
+        return Inverse("assembled", host_csr=M_host)
+
     d_np = np.asarray(A.diagonal()) if diag_scale else None
     if diag_scale:
         matvec = lambda v: (A @ v) / d_np

@@ -5,7 +5,8 @@ kernels (same functions, same C interface).  It is compiled with g++ into
 this package's ``_build`` directory at first use, and rebuilt when the
 source is newer.  Every entry point returns None when no compiler is
 available; its caller then takes the numpy fallback, which computes the
-same result.  These are host setup kernels, not device work.
+same result; ``PFLARE_NO_NATIVE=1`` forces that fallback.  These are
+host setup kernels, not device work.
 """
 
 from __future__ import annotations
@@ -70,8 +71,12 @@ def _build(out: str):
 
 
 def get_lib():
-    """The loaded ctypes library, or None when it cannot be built."""
+    """The loaded ctypes library, or None when it cannot be built or when
+    ``PFLARE_NO_NATIVE=1`` forces the numpy paths (as in the reference,
+    pflare_tpu/native/__init__.py:40)."""
     global _LIB, _TRIED
+    if os.environ.get("PFLARE_NO_NATIVE") == "1":
+        return None
     if _TRIED:
         return _LIB
     _TRIED = True

@@ -1,10 +1,10 @@
-"""Restarted GMRES, the outer Krylov iteration of ``PCAIR.solve``.
+"""Restarted GMRES and Richardson, the outer Krylov iterations.
 
-The host-driven solver of the reference (pflare_tpu/solvers/krylov.py,
+The host-driven solvers of the reference (pflare_tpu/solvers/krylov.py,
 the path ``pc.solve(..., eager=True)`` takes there): the operator and the
 preconditioner run on the device, while the Hessenberg, the Givens
-rotations and every convergence decision live on the host, one norm read
-back per iteration.  Semantics follow PETSc: left preconditioning
+rotations and every convergence decision live on the host, norms read
+back every iteration.  Semantics follow PETSc: left preconditioning
 monitors the preconditioned residual, right preconditioning the true
 residual; rtol is relative to the (preconditioned) RHS norm.
 """
@@ -38,6 +38,28 @@ class SolveResult:
 
 def _norm(v):
     return float(torch.linalg.norm(v))
+
+
+def richardson(A, b, x0=None, M=None, rtol=1e-5, atol=1e-50, max_it=1000,
+               scale=1.0) -> SolveResult:
+    """x_{k+1} = x_k + scale * M(b - A x_k), monitoring the
+    unpreconditioned residual norm."""
+    matvec = as_operator(A)
+    M = M or (lambda r: r)
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - matvec(x)
+    r0_norm = _norm(r)
+    norms = [r0_norm]
+    if r0_norm == 0.0:
+        return SolveResult(x, 0, True, norms)
+    for it in range(1, max_it + 1):
+        x = x + scale * M(r)
+        r = b - matvec(x)
+        rn = _norm(r)
+        norms.append(rn)
+        if rn <= max(rtol * r0_norm, atol):
+            return SolveResult(x, it, True, norms)
+    return SolveResult(x, max_it, False, norms)
 
 
 def _mgs(V, w, H, j):

@@ -11,6 +11,7 @@ src/PETSc_Helper.F90:490).
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 
 
 class SparsityPattern:
@@ -39,3 +40,32 @@ class SparsityPattern:
         self.ell_cols = np.zeros((n_rows, self.K), dtype=np.int32)
         self.ell_cols[rows, offs] = self.indices.astype(np.int32)
         self.slot_of_pos = rows * self.K + offs
+
+    def row_of_pos(self) -> np.ndarray:
+        """The row of each CSR entry."""
+        return np.repeat(np.arange(self.shape[0], dtype=np.int64),
+                         np.diff(self.indptr))
+
+    def csr_bool(self) -> sp.csr_matrix:
+        """Boolean scipy CSR with this pattern."""
+        return sp.csr_matrix(
+            (np.ones(self.nnz, dtype=bool), self.indices, self.indptr),
+            shape=self.shape)
+
+    def find(self, rows, cols) -> np.ndarray:
+        """CSR positions of the (rows, cols) entries; -1 where absent."""
+        keys = self.row_of_pos() * np.int64(self.shape[1]) + self.indices
+        q = (np.asarray(rows, dtype=np.int64) * np.int64(self.shape[1])
+             + np.asarray(cols, dtype=np.int64))
+        if self.nnz == 0:
+            return np.full(np.shape(q), -1, dtype=np.int64)
+        pos = np.minimum(np.searchsorted(keys, q), self.nnz - 1)
+        return np.where(keys[pos] == q, pos, -1)
+
+    def diag_positions(self) -> np.ndarray:
+        """CSR position of each row's diagonal entry; -1 where absent."""
+        n = min(self.shape)
+        idx = np.arange(n, dtype=np.int64)
+        out = np.full(self.shape[0], -1, dtype=np.int64)
+        out[:n] = self.find(idx, idx)
+        return out

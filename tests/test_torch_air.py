@@ -4,7 +4,10 @@ Same matrix, same seeds, f64 (and the f32 host setup of the bench):
 CF markers, level sizes and nnz are identical; coefficients and operator
 values agree to 1e-12; ``apply`` to 1e-10; the Richardson norm history of
 ``solve_device`` to 1e-8 of the initial norm; GMRES iteration counts
-equal the reference's host-driven (``eager=True``) counts.
+equal the reference's host-driven (``eager=True``) counts.  Every test
+that holds the port against the reference takes the ``host_kernels``
+fixture (tests/torch_reference.py), so both packages run their setup on
+the same host kernels.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import pflare_tpu_torch as tpf
 from pflare_tpu_torch import native as tnative
 from pflare_tpu_torch.air.smooth import vcycle_kaskade
 from pflare_tpu_torch.convert import hierarchy_from_numpy
+from torch_reference import NATIVE, NUMPY, host_kernels, pair_host_kernels  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -60,10 +64,11 @@ def _snapshot(h):
 _CACHE = {}
 
 
-def _pair(n, dtype=np.float64):
+def _pair(n, pairing, dtype=np.float64):
     """(reference PCAIR, port PCAIR, ref snapshot, port snapshot) for the
-    bench options on adv_diff_2d(n), built once per worker."""
-    key = (n, np.dtype(dtype).name)
+    bench options on adv_diff_2d(n), built once per worker and host-kernel
+    pairing."""
+    key = (n, np.dtype(dtype).name, pairing)
     if key not in _CACHE:
         A = jpf.adv_diff_2d(n).astype(dtype)
         jpc = jpf.PCAIR(bench_kw(jpf), jit=False).setup(A)
@@ -84,13 +89,34 @@ def _same_csr(M, N, rtol):
     assert np.abs(M.data - N.data).max(initial=0.0) <= rtol * scale
 
 
-@pytest.mark.parametrize("n,dtype", [(64, np.float64), (128, np.float64),
-                                     (64, np.float32)])
-def test_hierarchy_matches_reference(n, dtype):
+@pytest.mark.parametrize("n,dtype,host_kernels", [
+    pytest.param(64, np.float64, NATIVE, id="64-float64"),
+    pytest.param(64, np.float64, NUMPY, id="64-float64-numpy"),
+    pytest.param(128, np.float64, NATIVE, id="128-float64"),
+    pytest.param(64, np.float32, NATIVE, id="64-float32")],
+    indirect=["host_kernels"])
+def test_hierarchy_matches_reference(n, dtype, host_kernels):
     """CF markers, level sizes and nnz identical; operator values and
     polynomial coefficients to 1e-12 (f64) -- also for the f32 host setup
-    the bench runs."""
-    _, _, _, js, ts = _pair(n, dtype)
+    the bench runs.  64-float64 runs once on the native host kernels (when
+    both load) and once on the numpy fallbacks of both packages."""
+    _check_hierarchy(n, dtype, host_kernels)
+
+
+def test_pairing_falls_back_to_numpy(monkeypatch):
+    """With the reference's native library missing, the pairing puts the
+    port on its numpy fallbacks too, and the 64^2 f64 hierarchies still
+    agree to 1e-12."""
+    from pflare_tpu import native as jnative
+
+    monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    assert pair_host_kernels(monkeypatch, NATIVE) == NUMPY
+    assert tnative.get_lib() is None and jnative.get_lib() is None
+    _check_hierarchy(64, np.float64, NUMPY)
+
+
+def _check_hierarchy(n, dtype, pairing):
+    _, _, _, js, ts = _pair(n, pairing, dtype)
     rtol = 1e-12 if dtype == np.float64 else 1e-6
     assert len(ts["levels"]) == len(js["levels"])
     for a, b in zip(js["levels"], ts["levels"]):
@@ -114,8 +140,8 @@ def test_hierarchy_matches_reference(n, dtype):
 
 
 @pytest.mark.parametrize("n", [64, 128])
-def test_apply_matches_reference(n):
-    A, jpc, tpc, _, _ = _pair(n)
+def test_apply_matches_reference(n, host_kernels):
+    A, jpc, tpc, _, _ = _pair(n, host_kernels)
     r = rhs(A.shape[0])
     y_ref = np.asarray(jpc.apply(jnp.asarray(r)))
     y = tpc.apply(r).numpy()
@@ -123,10 +149,10 @@ def test_apply_matches_reference(n):
 
 
 @pytest.mark.parametrize("n", [64, 128])
-def test_solve_device_history_matches_reference(n):
+def test_solve_device_history_matches_reference(n, host_kernels):
     """Richardson norm history of ``solve_device`` against the same
     iteration driven through the reference's apply."""
-    A, jpc, tpc, _, _ = _pair(n)
+    A, jpc, tpc, _, _ = _pair(n, host_kernels)
     b = np.random.default_rng(1).standard_normal(A.shape[0])
     x, norms = tpc.solve_device(b, max_it=10)
     E = JELL.from_scipy(A)
@@ -145,10 +171,10 @@ def test_solve_device_history_matches_reference(n):
     assert true <= 1e-5
 
 
-def test_hierarchy_from_numpy_matches_reference_apply():
+def test_hierarchy_from_numpy_matches_reference_apply(host_kernels):
     """The reference's own device hierarchy, carried across as numpy
     arrays, gives the reference's apply."""
-    A, jpc, _, js, _ = _pair(64)
+    A, jpc, _, js, _ = _pair(64, host_kernels)
     levels = []
     for lev in jpc.hierarchy.device_levels:
         inv = lev["inv_Aff"]
@@ -174,18 +200,34 @@ def test_hierarchy_from_numpy_matches_reference_apply():
         hierarchy_from_numpy([bad], coarse, torch.float64, "cpu")
 
 
-@pytest.mark.parametrize("variant", ["poly_mf", "newton_assembled",
-                                     "power_scaled"])
-def test_inverse_variants_match_reference_apply(variant):
-    """Level smoothers beyond the main path's: matrix-free Arnoldi
-    (Horner), assembled Newton, diagonally scaled power basis."""
-    kw = {"poly_mf": dict(matrix_free_polys=True),
-          "newton_assembled": dict(inverse_type="NEWTON"),
-          "power_scaled": dict(inverse_type="POWER",
-                               diag_scale_polys=True)}[variant]
+_VARIANTS = {
+    "poly_mf": dict(matrix_free_polys=True),
+    "newton_assembled": dict(inverse_type="NEWTON"),
+    "power_scaled": dict(inverse_type="POWER", diag_scale_polys=True),
+    "neumann_assembled": dict(inverse_type="NEUMANN"),
+    "neumann_mf": dict(inverse_type="NEUMANN", matrix_free_polys=True),
+    "jacobi": dict(inverse_type="JACOBI"),
+    "wjacobi": dict(inverse_type="WJACOBI"),
+    "sai": dict(inverse_type="SAI"),
+    "isai": dict(inverse_type="ISAI"),
+    "lu": dict(inverse_type="LU"),
+    "coarsest_lu": dict(coarsest_inverse_type="LU"),
+}
+
+
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+def test_inverse_variants_match_reference_apply(variant, host_kernels):
+    """Level smoothers and coarse solvers beyond the main path's:
+    matrix-free Arnoldi (Horner), assembled Newton, diagonally scaled
+    power basis, and every other inverse type ``check_options`` admits
+    (Neumann in both forms, Jacobi, weighted Jacobi, SAI, ISAI, LU), with
+    LU also as the coarse solver.  Kinds equal, coefficients to 1e-12,
+    ``apply`` to 1e-10."""
+    kw = _VARIANTS[variant]
     A = tpf.adv_diff_2d(40)
     jpc = jpf.PCAIR(jpf.AIROptions(**kw), jit=False).setup(A)
     tpc = tpf.PCAIR(tpf.AIROptions(**kw), **F64).setup(A)
+    assert len(jpc.hierarchy.levels) == len(tpc.hierarchy.levels)
     for a, b in zip(jpc.hierarchy.levels, tpc.hierarchy.levels):
         assert np.array_equal(a.fine, b.fine)
         assert a.inv_Aff.kind == b.inv_Aff.kind
@@ -193,6 +235,7 @@ def test_inverse_variants_match_reference_apply(variant):
             np.testing.assert_allclose(b.inv_Aff.coefficients,
                                        np.asarray(a.inv_Aff.coefficients),
                                        rtol=1e-12, atol=0)
+    assert jpc.hierarchy.coarse_inv.kind == tpc.hierarchy.coarse_inv.kind
     r = rhs(A.shape[0])
     y_ref = np.asarray(jpc.apply(jnp.asarray(r)))
     y = tpc.apply(r).numpy()
@@ -229,6 +272,8 @@ def test_numpy_fallbacks_match_native(monkeypatch):
 
 
 def test_unported_options_are_refused():
+    tpf.PCAIR(tpf.AIROptions(inverse_type="SAI",
+                             coarsest_inverse_type="LU"), **F64)
     with pytest.raises(NotImplementedError):
         tpf.PCAIR(tpf.AIROptions(symmetric=True), **F64)
     with pytest.raises(NotImplementedError):
@@ -251,7 +296,7 @@ def _gmres_pair(A, opts_kw, b, x0=None, **solve_kw):
     return res, jres.iterations, tpc
 
 
-def test_check_adv_diff_25():
+def test_check_adv_diff_25(host_kernels):
     """reference: tests/Makefile:1323 -- adv_diff 25^2, default AIR,
     <= 5 its."""
     A = tpf.adv_diff_2d(25)
@@ -260,7 +305,7 @@ def test_check_adv_diff_25():
     assert res.iterations == j_its
 
 
-def test_check_matrandom():
+def test_check_matrandom(host_kernels):
     """reference: tests/Makefile:1319 -- random diag-dominant, <= 5 its."""
     A = tpf.random_diag_dominant(300, 0.02, seed=11)
     res, j_its, _ = _gmres_pair(A, {}, rhs(300), rtol=1e-5, max_it=5)
@@ -268,7 +313,7 @@ def test_check_matrandom():
     assert res.iterations == j_its
 
 
-def test_medium_scaling_100():
+def test_medium_scaling_100(host_kernels):
     """reference: tests/Makefile:1117-1131 -- right-PC GMRES rtol 1e-10,
     a_lump, a_drop 1e-5, strong_threshold 0.99: <= 6 its at 100^2."""
     A = tpf.adv_diff_2d(100)
@@ -279,7 +324,7 @@ def test_medium_scaling_100():
     assert res.iterations == j_its
 
 
-def test_medium_scaling_zero_rhs_100():
+def test_medium_scaling_zero_rhs_100(host_kernels):
     """The reference driver's convention (tests/adv_diff_fd.c:178,325):
     zero RHS from x0 = 1, right GMRES rtol 1e-10, <= 6 its -- the f64
     parity configuration chip_smoke.py runs at 512^2."""
@@ -295,7 +340,7 @@ def test_medium_scaling_zero_rhs_100():
     assert np.linalg.norm(A @ x) / np.linalg.norm(A @ np.ones(n)) <= 1e-8
 
 
-def test_bench_truncated_config():
+def test_bench_truncated_config(host_kernels):
     """The bench's truncation of the medium config (5 levels, order-32
     matrix-free Newton coarse solve) at 128^2 (tests/test_air.py:291)."""
     A = tpf.adv_diff_2d(128)

@@ -203,3 +203,28 @@ def test_solve_goes_through_both_kernels():
     assert norms[-1] <= 1e-5 * norms[0]
     r = A.astype(np.float64) @ x.double().cpu().numpy() - b
     assert np.linalg.norm(r) <= 1e-4 * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(inverse_sparsity_order=2),
+                                dict(inverse_type="NEWTON", matrix_free=True),
+                                dict(inverse_type="SAI"),
+                                dict(inverse_type="LU")],
+                         ids=["arnoldi", "arnoldi-order-2", "newton-mf", "sai",
+                              "lu"])
+def test_pcpflareinv_card_matches_cpu(kw):
+    """PCPFLAREINV on the card: the GMRES history equals the CPU run's
+    (the plain versions) to 1e-8 of the initial residual norm (LU ends
+    at rounding level in one iteration), and every iteration launches
+    the DIA kernel (the Krylov operator of adv_diff_2d is DIA)."""
+    dev = _card()
+    A = tpf.adv_diff_2d(64)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    pc = tpf.PCPFLAREINV(**kw, dtype=torch.float64, device=dev).setup(A)
+    pc.upload()
+    tdia.KERNEL_LAUNCHES = 0
+    res = pc.solve(b, max_it=30)
+    assert tdia.KERNEL_LAUNCHES >= res.iterations
+    ref = tpf.PCPFLAREINV(**kw, dtype=torch.float64, device="cpu").setup(
+        A).solve(b, max_it=30)
+    assert res.iterations == ref.iterations
+    assert np.max(np.abs(res.history - ref.history)) <= 1e-8 * ref.history[0]

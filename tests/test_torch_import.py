@@ -6,6 +6,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 import pflare_tpu
@@ -56,3 +57,57 @@ def test_generators_match_reference_bitwise():
     B = pflare_tpu_torch.random_diag_dominant(300, 0.02, seed=11)
     assert (A != B).nnz == 0
     assert np.array_equal(A.data, B.data)
+
+
+# each module of the approximate-inverse slice, driven alone in a fresh
+# interpreter with the build directory empty and the compiler recorded
+# (every compile "fails", so the host kernels fall back to numpy)
+_SLICE_JOBS = {
+    "pflare_tpu_torch.pcpflareinv": (
+        "pc = m.PCPFLAREINV(dtype=torch.float64, device='cpu')\n"
+        "pc.setup(adv_diff_2d(16)).solve(np.ones(256), max_it=5)\n"),
+    "pflare_tpu_torch.inverse.sai": (
+        "m.sai_inverse(adv_diff_2d(8), incomplete=False)\n"),
+    "pflare_tpu_torch.sparse.spgemm": (
+        "from pflare_tpu_torch.sparse import SparsityPattern\n"
+        "A = adv_diff_2d(8)\n"
+        "m.FixedSparsityPolyPlan(SparsityPattern(A.indptr, A.indices, "
+        "A.shape), 3, 2).execute_host(A, np.ones(4))\n"),
+}
+
+
+@pytest.mark.parametrize("module", list(_SLICE_JOBS))
+def test_slice_module_stands_alone(module):
+    """Importing and running the module pulls in neither jax nor
+    pflare_tpu, and every source it would compile lies inside the port."""
+    code = (
+        "import importlib, json, subprocess, sys, tempfile\n"
+        "import numpy as np, torch\n"
+        "calls, real_run = [], subprocess.run\n"
+        "def fake_run(cmd, *a, **k):\n"
+        "    if not any(str(c).endswith(('.cpp', '.cu')) for c in cmd):\n"
+        "        return real_run(cmd, *a, **k)\n"
+        "    calls.append([str(c) for c in cmd])\n"
+        "    raise subprocess.CalledProcessError(1, cmd)\n"
+        "subprocess.run = fake_run\n"
+        "from pflare_tpu_torch import native\n"
+        "native.BUILD_DIR = tempfile.mkdtemp()\n"
+        f"m = importlib.import_module({module!r})\n"
+        "from pflare_tpu_torch.problems import adv_diff_2d\n"
+        + _SLICE_JOBS[module] +
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'pflare_tpu')]\n"
+        "srcs = [a for c in calls for a in c if a.endswith(('.cpp', '.cu'))]\n"
+        "print(json.dumps({'bad': bad, 'srcs': srcs}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PFLARE_NO_NATIVE", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bad"] == []
+    if module.endswith("pcpflareinv"):
+        assert got["srcs"]            # the setup asked for the host kernels
+    pkg = os.path.realpath(os.path.dirname(pflare_tpu_torch.__file__))
+    for src in got["srcs"]:
+        assert os.path.commonpath([pkg, os.path.realpath(src)]) == pkg, src
