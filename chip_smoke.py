@@ -43,7 +43,28 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
    the reported one; the DIA kernel against its plain version on the
    2048^2 assembled inverses and the sparsity-order-2 inverse (K = 6),
    which ``measure`` also times at 2048^2; (c) LU as a one-level PC on
-   adv_diff_2d(64): GMRES converges in at most 2 iterations.
+   adv_diff_2d(64): GMRES converges in at most 2 iterations;
+10. the AIR options: (a) at 512^2, f64, right GMRES(30) to rtol 1e-10
+    with max_it=60 (or the set's own ksp), every option set of
+    ``PHASE10_SETS`` (lAIR and SAI-lAIR with and without strong-R
+    dropping, the ideal W, improvement and constraints, symmetric PtAP,
+    full smoothing, C-point smoothing and per-level orders, anisotropic
+    diffusion with ffc, auto-truncation, every CF splitting, the RCM
+    reorder of a scrambled matrix, FGMRES, Richardson, right GMRES with
+    ``solve_device``, adv_diff_3d(64)), each set up once on the host
+    (sets with the same options share it) and solved on the card and on
+    the CPU (the plain versions, in a worker thread): residual histories
+    equal to 1e-8 of each norm (or 1e-12 of the initial norm) at every
+    iteration, the DIA kernel launched in every run but the RCM one and
+    the banded kernel in that one; ``compute_diag_dom_submatrix`` on the
+    512^2 matrix; the DIA kernel against its plain version on the
+    adv_diff_3d(64) top A, which ``measure`` also times; (b) at 2048^2,
+    f32, 10 levels, the phase-7 options with lAIR, strong-R dropping and
+    fcf smoothing: solve_device with max_it=10, Richardson and right
+    GMRES, each with the launch counters at 0 before it, more DIA
+    launches a Richardson iteration than phase 7, the true residual by
+    scipy within 10% of the reported one, then one more Richardson solve
+    under torch.profiler.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -61,6 +82,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -180,7 +202,8 @@ def main() -> int:
     print(smi.splitlines()[0])
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
-          f"count {torch.cuda.device_count()}")
+          f"count {torch.cuda.device_count()}, host: {os.cpu_count()} CPUs, "
+          f"{torch.get_num_threads()} torch threads")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -352,11 +375,13 @@ def main() -> int:
 
     def profile_solve(pcx, bx, label):
         """One more warm solve under torch.profiler: each kernel's calls
-        and device time in it, and the device's busy and idle shares."""
+        and device time in it, and the device's busy and idle shares.
+        Device activity alone: the host ops' events are not read, and with
+        them the profiled 2048^2 lAIR fcf solve took 85 s in all on the
+        H100's host, 3.4 s of it the solve."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             device_sync_read(*pcx.solve_device(bx, max_it=10,
                                                ksp="richardson"))
@@ -539,6 +564,13 @@ def main() -> int:
                                 A2k, check, measure, timed)
     print(f"# phase 9: {t_phase9:.3f} s")
 
+    # ~~~~~~~~~~ 10. the AIR options ~~~~~~~~~~
+    del pc2k, dh2k, x2k, ops2k, dia_2k
+    options_runs, t_phase10 = phase10(
+        np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure, timed,
+        profile_solve, setup_breakdown, launches2k["dia"] / 10)
+    print(f"# phase 10: {t_phase10:.3f} s")
+
     kernels = []
     for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
                               ("padded", "dia", DIA_SITES["padded"]),
@@ -563,6 +595,12 @@ def main() -> int:
                         "launches_per_iteration":
                             run["launches"][kind] / run["iterations"]}
                 for label, run in inv_runs.items()},
+            "air_options": {
+                label: {"launches": run["launches"][kind],
+                        "iterations": run["iterations"],
+                        "launches_per_iteration":
+                            run["launches"][kind] / max(run["iterations"], 1)}
+                for label, run in options_runs.items()},
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -699,6 +737,302 @@ def phase9(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, check,
           f"{res.iterations} its, converged {res.converged}")
     require(res.converged and res.iterations <= 2,
             "LU did not converge in 2 GMRES iterations")
+    return runs, time.perf_counter() - t_phase
+
+
+def _bench_kw():
+    """The bench's drop, lump and strength options (bench.py:430-436)."""
+    return dict(a_lump=True, a_drop=1e-5, strong_threshold=0.99)
+
+
+# the bench's depth (bench.py:430-436): phase 10 (a) cuts every set to it,
+# so that a set's setup and solves cost seconds; the auto-truncation set
+# keeps the full depth it truncates
+BENCH_DEPTH = dict(max_levels=6, coarsest_inverse_type="NEWTON",
+                   coarsest_poly_order=24, coarsest_matrix_free_polys=True)
+FULL_DEPTH = dict(max_levels=300, coarsest_inverse_type="ARNOLDI",
+                  coarsest_matrix_free_polys=False)
+
+# (label, generator, options, solve keywords) of phase 10 (a); the sets on
+# adv_diff_2d (and its scramble and 3-D sibling) also take the bench's
+# drop, lump and strength.  Consecutive sets with the same generator and
+# options share one setup.  ``device_ksp`` solves with ``solve_device``.
+PHASE10_SETS = (
+    ("lair", "adv", dict(z_type="LAIR"), {}),
+    ("lair strong R", "adv", dict(z_type="LAIR", strong_r_threshold=0.01),
+     {}),
+    ("sai-lair", "adv", dict(z_type="LAIR_SAI"), {}),
+    ("sai-lair strong R", "adv", dict(z_type="LAIR_SAI",
+                                      strong_r_threshold=0.01), {}),
+    ("ideal W", "adv", dict(one_point_classical_prolong=False), {}),
+    ("ideal W matrix-free", "adv", dict(one_point_classical_prolong=False,
+                                        matrix_free_polys=True), {}),
+    ("ideal W lair", "adv", dict(one_point_classical_prolong=False,
+                                 z_type="LAIR"), {}),
+    ("ideal W matrix-free lair", "adv", dict(
+        one_point_classical_prolong=False, matrix_free_polys=True,
+        z_type="LAIR"), {}),
+    ("improve and constrain", "adv", dict(
+        one_point_classical_prolong=False, improve_w_its=2, improve_z_its=2,
+        constrain_w=True, constrain_z=True), {}),
+    ("symmetric", "diff", dict(symmetric=True), {}),
+    ("full smoothing", "diff", dict(full_smoothing_up_and_down=True,
+                                    inverse_type="ARNOLDI"), {}),
+    ("fc", "adv", dict(inverse_type="POWER", smooth_order="fc"), {}),
+    ("fcf", "adv", dict(smooth_order="fcf"), {}),
+    ("per-level fcf/ff/f", "adv", dict(smooth_order_levels=("fcf", "ff",
+                                                           "f")), {}),
+    ("anisotropic ffc", "aniso", dict(strong_threshold=0.2,
+                                      smooth_order="ffc"), {}),
+    ("auto-truncation", "adv", dict(FULL_DEPTH, auto_truncate_start_level=2,
+                                    auto_truncate_tol=1e-2,
+                                    coarsest_poly_order=12), {}),
+    ("PMIS", "adv", dict(cf_splitting_type="PMIS"), {}),
+    ("PMIS_DIST2", "adv", dict(cf_splitting_type="PMIS_DIST2"), {}),
+    ("AGG", "adv", dict(cf_splitting_type="AGG"), {}),
+    ("PMIS_AGG", "adv", dict(cf_splitting_type="PMIS_AGG"), {}),
+    ("CR", "adv", dict(cf_splitting_type="CR", strong_threshold=0.4), {}),
+    # DIAG_DOM's strong threshold is its largest diagonal-dominance ratio
+    ("DIAG_DOM", "adv", dict(cf_splitting_type="DIAG_DOM",
+                             strong_threshold=0.9), {}),
+    ("RCM reorder", "scrambled", dict(reorder="rcm"), {}),
+    ("FGMRES", "adv", {}, dict(ksp="fgmres")),
+    ("Richardson", "adv", {}, dict(ksp="richardson")),
+    ("solve_device GMRES", "adv", {}, dict(device_ksp="gmres", max_it=10)),
+    ("adv_diff_3d(64)", "adv3d", {}, {}),
+)
+def _phase10_solve(pcx, b, solve_kw):
+    """One phase-10 (a) solve: (residual norms, x, iterations)."""
+    kw = dict(solve_kw)
+    ksp = kw.pop("device_ksp", None)
+    if ksp is not None:
+        x, norms = pcx.solve_device(b, max_it=kw["max_it"], ksp=ksp)
+        return norms.cpu().numpy(), x, kw["max_it"]
+    res = pcx.solve(b, **kw)
+    return res.history, res.x, res.iterations
+
+
+def _timed_phase10_solve(pcx, b, solve_kw):
+    """The CPU twin's solve: (residual norms, seconds)."""
+    t0 = time.perf_counter()
+    h = _phase10_solve(pcx, b, solve_kw)[0]
+    return h, time.perf_counter() - t0
+
+
+HISTORY_FLOOR = 1e-12  # phase 10 (a): of the initial norm (rounding)
+F32_FLOOR = 1e-6       # phase 10 (b): f32 rounding floor of a residual
+
+
+def phase10(np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure,
+            timed, profile_solve, setup_breakdown, phase7_dia_per_it):
+    """The AIR options on the card (see the module docstring, phase 10).
+    Returns the 512^2 runs and the 2048^2 run ({label: {"launches",
+    "iterations"}}) and the phase's seconds."""
+    from pflare_tpu_torch.sparse import DIA
+    from pflare_tpu_torch.sparse.ops import diag_dominance_ratio
+    from pflare_tpu_torch.utils.timers import device_sync_read, reset_timers
+
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+
+    def zero_counts():
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+
+    # (a) every option set at 512^2, f64, card against CPU
+    A_adv = tpf.adv_diff_2d(512)
+    p = np.random.default_rng(8).permutation(A_adv.shape[0])
+    matrices = {"adv": A_adv, "diff": tpf.adv_diff_2d(512, alpha=1.0),
+                "aniso": tpf.anisotropic_diffusion_2d(512, 1e-3),
+                "scrambled": sp.csr_matrix(A_adv[p][:, p]),
+                "adv3d": tpf.adv_diff_3d(64)}
+    t0 = time.perf_counter()
+    sub, keep = tpf.compute_diag_dom_submatrix(A_adv, max_dd_ratio=0.9)
+    ratio = diag_dominance_ratio(sub, np.ones(sub.shape[0], bool)).max()
+    print(f"# 512^2 compute_diag_dom_submatrix(0.9): {len(keep)} of "
+          f"{A_adv.shape[0]} rows, largest ratio {ratio:.4f}, "
+          f"{time.perf_counter() - t0:.3f} s")
+    require(0 < len(keep) and ratio < 0.9, "512^2 diagonally dominant "
+            f"submatrix: {len(keep)} rows, largest ratio {ratio:.4f}")
+    runs = {}
+    pending = []
+    key = pc = pc_cpu = None
+    # Each set's CPU twin (its upload and solve, the plain versions) runs in
+    # a worker thread while this one sets up the next set and solves it on
+    # the card; the worker gets two cores fewer, and the printed seconds of
+    # both sides are taken under that shared load.
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, n_threads - 2))
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        for label, gen, kw, solve_kw in PHASE10_SETS:
+            A = matrices[gen]
+            solve_kw = dict(side="right", rtol=1e-10, atol=1e-50, max_it=60,
+                            restart=30) | solve_kw
+            if solve_kw.get("ksp", "gmres") != "gmres":
+                solve_kw.pop("side")
+            b = np.random.default_rng(0).standard_normal(A.shape[0])
+            t_setup = 0.0
+            if key != (gen, kw):
+                key = (gen, kw)
+                base = BENCH_DEPTH | (_bench_kw() if gen in (
+                    "adv", "scrambled", "adv3d") else {})
+                opts = tpf.AIROptions().replace(**(base | kw))
+                t0 = time.perf_counter()
+                pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev).setup(A)
+                t_setup = time.perf_counter() - t0
+                pc_cpu = pc.on("cpu")
+                pc.upload()
+            zero_counts()
+            t0 = time.perf_counter()
+            h, x, its = _phase10_solve(pc, b, solve_kw)
+            t_card = time.perf_counter() - t0
+            launches = counts()
+            true = float(np.linalg.norm(A @ x.cpu().numpy() - b)
+                         / np.linalg.norm(b))
+            line = (f"# {A.shape[0]} rows f64 AIR {label}: {pc.n_levels} "
+                    "levels" + (", auto-truncated" if
+                                pc.hierarchy.auto_truncated else "")
+                    + f", host setup {t_setup:.3f} s"
+                    + (" (shared with the set before)" if not t_setup else "")
+                    + ", " + (solve_kw.get("device_ksp")
+                              or solve_kw.get("ksp", "right GMRES"))
+                    + (" on the device" if "device_ksp" in solve_kw else "")
+                    + f" {its} its, relative residual {h[-1] / h[0]:.6e} "
+                    f"reported, {true:.6e} true, card {t_card:.4f} s")
+            pending.append((label, gen, line, h, its, launches, pool.submit(
+                _timed_phase10_solve, pc_cpu, b, solve_kw)))
+            runs[f"512 {label}"] = {"launches": launches, "iterations": its}
+        del pc, pc_cpu
+        top3d = DIA.from_scipy(matrices["adv3d"], dtype=torch.float32).to(dev)
+        check(top3d, "aligned",
+              f"adv_diff_3d(64) top A DIA K={len(top3d.offsets)}")
+        timed["aligned"].append(measure("adv_diff_3d(64) top A", top3d))
+        del matrices, A_adv, top3d
+        t_a = time.perf_counter() - t_phase
+
+        # (b) 2048^2, f32: the phase-7 options with lAIR and fcf smoothing,
+        # and strong-R dropping: without it the lAIR sparsity of the coarse
+        # levels reaches 100-200 unknowns a row, and their host solves alone
+        # would take several minutes at this size.  Its host setup and
+        # upload run while the worker finishes the CPU twins of (a).
+        opts = tpf.AIROptions(
+            a_lump=True, a_drop=1e-5, strong_threshold=0.99, max_levels=10,
+            coarsest_inverse_type=tpf.InverseType.NEWTON,
+            coarsest_poly_order=24, coarsest_matrix_free_polys=True,
+            z_type=tpf.ZType.LAIR,
+            strong_r_threshold=0.01).with_smooth_type("fcf")
+        pc = tpf.PCAIR(opts, dtype=torch.float32, device=dev)
+        reset_timers()
+        t0 = time.perf_counter()
+        pc.setup(A2k.astype(np.float32))
+        t_setup = time.perf_counter() - t0
+        print(f"# 2048^2 f32 lAIR fcf setup phases: {setup_breakdown()}")
+        t0 = time.perf_counter()
+        pc.upload()
+        torch.cuda.synchronize()
+        t_upload = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for label, gen, line, h, its, launches, twin in pending:
+            h_cpu, t_cpu = twin.result()
+            require(len(h) == len(h_cpu), f"512^2 {label}: {len(h)} card "
+                    f"norms against {len(h_cpu)} on the CPU")
+            diff = np.abs(h - h_cpu)
+            dev_rel = float(np.max(diff / h_cpu))
+            print(f"{line}, CPU {t_cpu:.4f} s, history max relative "
+                  f"difference {dev_rel:.3e}, launches {launches}, per "
+                  f"iteration dia {launches['dia'] / max(its, 1):.2f} banded "
+                  f"{launches['banded'] / max(its, 1):.2f}")
+            require(np.all(diff <= HISTORY_RTOL * h_cpu
+                           + HISTORY_FLOOR * h_cpu[0]),
+                    f"512^2 {label}: card and CPU histories differ by "
+                    f"{dev_rel:.3e} of a norm")
+            if gen == "scrambled":
+                require(launches["banded"] > 0, f"512^2 {label}: the banded "
+                        f"kernel was not launched: {launches}")
+            else:
+                require(launches["dia"] > 0, f"512^2 {label}: the DIA "
+                        f"kernel was not launched: {launches}")
+        print(f"# phase 10 (a): card side {t_a:.3f} s; its CPU twins ended "
+              f"{time.perf_counter() - t0:.3f} s after (b)'s host setup and "
+              "upload")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        torch.set_num_threads(n_threads)
+    del pending
+    b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
+
+    def true_residual(x):
+        return float(np.linalg.norm(A2k @ x.double().cpu().numpy() - b2k)
+                     / np.linalg.norm(b2k))
+
+    zero_counts()
+    t0 = time.perf_counter()
+    x, norms = pc.solve_device(b2k, max_it=10)
+    device_sync_read(x, norms)
+    t_solve = time.perf_counter() - t0
+    launches = counts()
+    norms = norms.cpu().numpy()
+    reported, true = float(norms[-1] / norms[0]), true_residual(x)
+    # two iterations, above the f32 rounding floor, where the reported
+    # residual must be the true one's; after ten both sit at that floor
+    # (b - A x in f32 rounds to ~1e-7 of ||b||), where they differ
+    x2, norms2 = pc.solve_device(b2k, max_it=2)
+    reported2 = float(norms2[-1] / norms2[0])
+    true2 = true_residual(x2)
+    print(f"# 2048^2 f32 lAIR fcf: {pc.n_levels} levels "
+          f"{[lv.n for lv in pc.hierarchy.levels]}, host setup "
+          f"{t_setup:.3f} s, upload {t_upload:.3f} s, solve_device 10 "
+          f"Richardson its {t_solve:.4f} s to completion, relative residual "
+          f"{reported:.6e} reported, {true:.6e} true (scipy, f64); after 2 "
+          f"its {reported2:.6e} reported, {true2:.6e} true; launches "
+          f"{launches}, DIA launches an iteration {launches['dia'] / 10:.1f} "
+          f"(phase 7: {phase7_dia_per_it:.1f}), relative norms "
+          f"{np.array2string(norms / norms[0], precision=3)}")
+    require(np.isfinite(norms).all() and abs(true2 - reported2)
+            <= 0.1 * reported2, f"2048^2 lAIR fcf: true residual {true2:.3e}"
+            f" against {reported2:.3e} reported after 2 its")
+    require(abs(true - reported) <= 0.1 * reported
+            or max(true, reported) <= F32_FLOOR, f"2048^2 lAIR fcf: true "
+            f"residual {true:.3e} against {reported:.3e} reported")
+    require(launches["dia"] / 10 > phase7_dia_per_it, f"2048^2 lAIR fcf: "
+            f"{launches['dia'] / 10} DIA launches an iteration, not more "
+            f"than phase 7's {phase7_dia_per_it}")
+    runs["2048 lair fcf"] = {"launches": launches, "iterations": 10}
+
+    # right GMRES on the device (gmres_right_fixed) on the same hierarchy
+    zero_counts()
+    t0 = time.perf_counter()
+    x, norms = pc.solve_device(b2k, max_it=10, ksp="gmres")
+    device_sync_read(x, norms)
+    t_solve = time.perf_counter() - t0
+    launches = counts()
+    norms = norms.cpu().numpy()
+    x2, norms2 = pc.solve_device(b2k, max_it=2, ksp="gmres")
+    reported2 = float(norms2[-1] / norms2[0])
+    true2 = true_residual(x2)
+    print(f"# 2048^2 f32 lAIR fcf: solve_device 10 right GMRES its "
+          f"{t_solve:.4f} s to completion, relative residual "
+          f"{norms[-1] / norms[0]:.6e} reported, {true_residual(x):.6e} true; "
+          f"after 2 its {reported2:.6e} reported, {true2:.6e} true; launches "
+          f"{launches}, relative norms "
+          f"{np.array2string(norms / norms[0], precision=3)}")
+    require(np.isfinite(norms).all() and abs(true2 - reported2)
+            <= 0.1 * reported2, f"2048^2 lAIR fcf GMRES: true residual "
+            f"{true2:.3e} against {reported2:.3e} reported after 2 its")
+    require(launches["dia"] > 0 and launches["banded"] > 0, f"2048^2 lAIR "
+            f"fcf GMRES: a kernel was not launched: {launches}")
+    runs["2048 lair fcf gmres"] = {"launches": launches, "iterations": 10}
+    t0 = time.perf_counter()
+    profile_solve(pc, b2k, "2048^2 lAIR fcf")
+    print(f"# 2048^2 lAIR fcf: profiled solve and its tables "
+          f"{time.perf_counter() - t0:.3f} s")
+    del pc
+    print(f"# phase 10 (b), with the end of (a)'s CPU twins: "
+          f"{time.perf_counter() - t_phase - t_a:.3f} s")
     return runs, time.perf_counter() - t_phase
 
 

@@ -10,13 +10,22 @@ tested against; this package imports neither it nor jax.
 """
 
 from .params import InverseType, CFSplittingType, ZType, C_POINT, F_POINT
-from .options import AIROptions, PFLAREINVOptions
-from .problems import adv_diff_2d, random_diag_dominant
+from .options import AIROptions, PFLAREINVOptions, parse_smooth_order
+from .problems import (adv_1d, adv_diff_2d, adv_diff_3d,
+                       anisotropic_diffusion_2d,
+                       dg_upwind_advection_unstructured, random_diag_dominant)
+from .sparse import remove_from_sparse_match, remove_small_from_sparse
+from .solvers import fgmres, gmres, richardson
 from .air import PCAIR
 from .pcpflareinv import PCPFLAREINV
+from .cf import compute_cf_splitting, compute_diag_dom_submatrix
 
 __version__ = "0.1.0"
 
 __all__ = ["InverseType", "CFSplittingType", "ZType", "C_POINT", "F_POINT",
-           "AIROptions", "PFLAREINVOptions", "adv_diff_2d",
-           "random_diag_dominant", "PCAIR", "PCPFLAREINV"]
+           "AIROptions", "PFLAREINVOptions", "parse_smooth_order", "adv_1d",
+           "adv_diff_2d", "adv_diff_3d", "anisotropic_diffusion_2d",
+           "dg_upwind_advection_unstructured", "random_diag_dominant",
+           "remove_from_sparse_match", "remove_small_from_sparse", "fgmres",
+           "gmres", "richardson", "PCAIR", "PCPFLAREINV",
+           "compute_cf_splitting", "compute_diag_dom_submatrix"]

@@ -97,16 +97,22 @@ def inverse_to_fullspace(inv: Inverse, fine: np.ndarray, n: int,
 def build_fullspace_level(lvl, dtype, device) -> dict:
     """Device dict of one level in full-space form (see module docstring);
     ``lvl`` is a hierarchy ``LevelData`` (host matrices in compressed F/C
-    spaces)."""
+    spaces).  With C-point smoothing the level also carries ``mask_c``,
+    A_cc, A_cf and inv(A_cc), masked alike.  ``coarse`` is the transfer
+    order: the repartitioned order the next level lives in, when there is
+    one (the basis change costs nothing, the transfer already gathers)."""
     n = lvl.n
     fine = np.asarray(lvl.fine)
     coarse = np.asarray(lvl.coarse)
-    mask_f = np.zeros(n, dtype=numpy_dtype(dtype, np.float64))
+    coarse_tx = coarse if lvl.coarse_order is None else lvl.coarse_order
+    np_dtype = numpy_dtype(dtype, np.float64)
+    mask_f = np.zeros(n, dtype=np_dtype)
     mask_f[fine] = 1.0
     A_ff_op = make_op(_map_both(lvl.A_ff, fine, fine, n), dtype).to(device)
-    return {
+    d = {
         "mask_f": torch.from_numpy(mask_f).to(device),
-        "coarse": torch.as_tensor(coarse, dtype=torch.int64, device=device),
+        "coarse": torch.as_tensor(coarse_tx, dtype=torch.int64,
+                                  device=device),
         "A_ff": A_ff_op,
         "A_fc": make_op(_map_both(lvl.A_fc, fine, coarse, n),
                         dtype).to(device),
@@ -115,3 +121,36 @@ def build_fullspace_level(lvl, dtype, device) -> dict:
         "R": make_op(_map_rows(lvl.R, coarse, n), dtype).to(device),
         "P": make_op(_map_cols(lvl.P, coarse, n), dtype).to(device),
     }
+    if lvl.A_cc is not None:
+        mask_c = np.zeros(n, dtype=np_dtype)
+        mask_c[coarse] = 1.0
+        A_cc_op = make_op(_map_both(lvl.A_cc, coarse, coarse, n),
+                          dtype).to(device)
+        d["mask_c"] = torch.from_numpy(mask_c).to(device)
+        d["A_cc"] = A_cc_op
+        d["A_cf"] = make_op(_map_both(lvl.A_cf, coarse, fine, n),
+                            dtype).to(device)
+        d["inv_Acc"] = inverse_to_fullspace(lvl.inv_Acc, coarse, n, A_cc_op,
+                                            dtype, device)
+    return d
+
+
+def build_full_smoothing_level(lvl, dtype, device) -> dict:
+    """Device dict of one level under full_smoothing_up_and_down: the
+    level operator, the smoother's inverse of the whole A and the
+    compressed transfers (R is n_c x n, P n x n_c), each built with
+    ``make_op`` so that DIA and banded operators reach their kernels
+    (the reference builds them as plain ELL,
+    pflare_tpu/air/hierarchy.py:78-96)."""
+    A_op = make_op(lvl.A, dtype).to(device)
+    inv = lvl.inv_Aff
+    if inv.kind == "assembled":
+        inv_dev = inv.to(device, dtype,
+                         mat=make_op(inv.host_csr, dtype).to(device))
+    elif inv.kind in ("diagonal", "dense"):
+        inv_dev = inv.to(device, dtype)
+    else:   # matrix-free: the polynomial runs on the level operator
+        inv_dev = inv.to(device, dtype, mat=A_op)
+    return {"A": A_op, "inv_Aff": inv_dev,
+            "R": make_op(lvl.R, dtype).to(device),
+            "P": make_op(lvl.P, dtype).to(device)}

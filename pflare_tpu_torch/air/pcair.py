@@ -3,9 +3,11 @@
 The user-facing counterpart of the reference's PCAIR PETSc type
 (reference: src/PCAIR.c, src/PCAIR_Shell.F90) and of
 ``pflare_tpu.air.pcair.PCAIR``: ``setup`` builds the hierarchy on the
-host, ``upload`` builds its device form, ``apply`` runs the Kaskade
-V-cycle, ``solve`` runs GMRES with it and ``solve_device`` a fixed number
-of preconditioned Richardson iterations with no host round trip.
+host, ``upload`` builds its device form, ``apply`` runs the V-cycle,
+``solve`` runs GMRES, FGMRES or Richardson with it and ``solve_device``
+a fixed number of Richardson or right-GMRES iterations with no host round
+trip.  Under ``reorder="rcm"``/``"auto"`` the setup and solve run in the
+bandwidth-reducing order and every vector comes back in the caller's.
 """
 
 from __future__ import annotations
@@ -15,11 +17,12 @@ import scipy.sparse as sp
 import torch
 
 from ..options import AIROptions
-from ..solvers.jitted import richardson_fixed
-from ..solvers.krylov import gmres
-from ..utils.timers import timer
+from ..solvers.jitted import gmres_right_fixed, richardson_fixed
+from ..solvers.krylov import fgmres, gmres, richardson
+from ..utils.timers import print_timers, timer
 from .hierarchy import DeviceHierarchy, Hierarchy, check_options, setup_hierarchy
-from .smooth import vcycle_kaskade
+from .smooth import vcycle_full, vcycle_kaskade
+from .stats import compute_stats, print_stats
 
 
 class PCAIR:
@@ -42,19 +45,78 @@ class PCAIR:
         if kw:
             opts = opts.replace(**kw)
         check_options(opts)
+        if opts.reorder not in ("none", "rcm", "auto"):
+            raise ValueError(f"unknown reorder {opts.reorder!r}")
         self.options = opts
         self.dtype = dtype
         self.device = torch.device(device)
         self.hierarchy: Hierarchy | None = None
         self._device_hierarchy: DeviceHierarchy | None = None
+        self._perm = None       # device index tensors of the reordering
+        self._iperm = None
 
-    def setup(self, A):
-        """Build the hierarchy of the scipy matrix ``A`` on the host."""
-        A = sp.csr_matrix(A)
+    def setup(self, A, near_nullspace=None):
+        """Build the hierarchy of the scipy matrix ``A`` on the host.
+        ``near_nullspace``: candidate vectors for the constraints, in the
+        caller's order."""
+        A = self._apply_reorder(sp.csr_matrix(A))
+        if near_nullspace is not None and self._perm is not None:
+            perm = self._perm.cpu().numpy()
+            near_nullspace = [np.asarray(v)[perm] for v in near_nullspace]
         with timer("air_setup"):
-            self.hierarchy = setup_hierarchy(A, self.options)
+            self.hierarchy = setup_hierarchy(A, self.options,
+                                             near_nullspace=near_nullspace)
         self._device_hierarchy = None
+        if self.options.print_stats_timings:
+            print_stats(self.hierarchy)
+            print_timers()
         return self
+
+    def on(self, device) -> "PCAIR":
+        """A PCAIR that shares this one's host hierarchy (and reordering)
+        and solves on ``device``: one host setup, solved on the card and
+        on the CPU."""
+        twin = PCAIR(self.options, dtype=self.dtype, device=device)
+        twin.hierarchy = self.hierarchy
+        if self._perm is not None:
+            twin._perm = self._perm.to(twin.device)
+            twin._iperm = self._iperm.to(twin.device)
+        return twin
+
+    def _apply_reorder(self, A):
+        """Reverse Cuthill-McKee bands the matrix before setup
+        (``reorder="rcm"``), or does so only when it at least halves the
+        bandwidth (``"auto"``), so scrambled operators reach the DIA and
+        banded kernels (reference: pflare_tpu/air/pcair.py:225-267)."""
+        self._perm = self._iperm = None
+        if self.options.reorder == "none":
+            return A
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+        pat = sp.csr_matrix((np.ones(A.nnz), A.indices, A.indptr),
+                            shape=A.shape)
+        perm = np.asarray(reverse_cuthill_mckee(sp.csr_matrix(pat + pat.T),
+                                                symmetric_mode=True),
+                          dtype=np.int64)
+        iperm = np.empty_like(perm)
+        iperm[perm] = np.arange(len(perm))
+        if self.options.reorder == "auto" and A.nnz:
+            rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
+            bw_nat = int(np.abs(A.indices - rows).max())
+            bw_rcm = int(np.abs(iperm[A.indices] - iperm[rows]).max())
+            if bw_rcm * 2 > bw_nat:
+                return A
+        self._perm = torch.as_tensor(perm, device=self.device)
+        self._iperm = torch.as_tensor(iperm, device=self.device)
+        Ap = sp.csr_matrix(A[perm][:, perm])
+        Ap.sort_indices()
+        return Ap
+
+    def _to_internal(self, v):
+        return v if self._perm is None else v.index_select(0, self._perm)
+
+    def _from_internal(self, v):
+        return v if self._perm is None else v.index_select(0, self._iperm)
 
     def upload(self) -> DeviceHierarchy:
         """The device form of the hierarchy, built on first use (the
@@ -78,40 +140,113 @@ class PCAIR:
                                device=self.device)
 
     def _precond(self, dh: DeviceHierarchy):
+        """The internal-order preconditioner application."""
         if not dh.levels:
             # single level: the coarse solve alone (reference:
             # src/AIR_MG_Setup.F90:1158-1175)
             return dh.coarse_inv.apply
+        if dh.full_smoothing:
+            return lambda r: vcycle_full(dh.levels, dh.coarse_inv, r)
         smooth_order = self.options.smooth_arg
         return lambda r: vcycle_kaskade(dh.levels, dh.coarse_inv, r,
                                         smooth_order)
 
     def apply(self, r):
         """y = M^-1 r."""
-        return self._precond(self.upload())(self._vector(r))
+        M = self._precond(self.upload())
+        return self._from_internal(M(self._to_internal(self._vector(r))))
 
     def __call__(self, r):
         return self.apply(r)
 
-    def solve(self, b, x0=None, rtol=1e-5, atol=1e-50, max_it=10000,
-              side="left", restart=30):
-        """Restarted GMRES with this preconditioner (solvers/krylov.py);
-        returns a SolveResult whose ``x`` is a device tensor."""
+    def solve(self, b, x0=None, ksp="gmres", rtol=1e-5, atol=1e-50,
+              max_it=10000, side="left", restart=30):
+        """Krylov solve with this preconditioner (solvers/krylov.py):
+        ``ksp`` is "gmres" (``side`` left or right), "fgmres" or
+        "richardson".  Returns a SolveResult whose ``x`` is a device
+        tensor in the caller's order."""
         dh = self.upload()
-        b = self._vector(b)
-        x0 = None if x0 is None else self._vector(x0)
-        return gmres(dh.top, b, x0=x0, M=self._precond(dh), side=side,
-                     rtol=rtol, atol=atol, max_it=max_it, restart=restart)
+        b = self._to_internal(self._vector(b))
+        x0 = None if x0 is None else self._to_internal(self._vector(x0))
+        M = self._precond(dh)
+        if ksp == "gmres":
+            res = gmres(dh.top, b, x0=x0, M=M, side=side, rtol=rtol,
+                        atol=atol, max_it=max_it, restart=restart)
+        elif ksp == "fgmres":
+            res = fgmres(dh.top, b, x0=x0, M=M, rtol=rtol, atol=atol,
+                         max_it=max_it, restart=restart)
+        elif ksp == "richardson":
+            res = richardson(dh.top, b, x0=x0, M=M, rtol=rtol, atol=atol,
+                             max_it=max_it)
+        else:
+            raise ValueError(f"unknown ksp {ksp!r}")
+        res.x = self._from_internal(res.x)
+        return res
 
     def solve_device(self, b, max_it: int = 10, ksp: str = "richardson",
                      x0=None):
-        """``max_it`` preconditioned Richardson iterations with no host
-        round trip; returns (x, residual norms [max_it + 1]) as device
-        tensors, and the caller judges convergence from the norms."""
-        if ksp != "richardson":
-            raise NotImplementedError(f"solve_device ksp={ksp!r} is not "
-                                      "ported; use 'richardson'")
+        """``max_it`` preconditioned iterations with no host round trip:
+        Richardson (``ksp="richardson"``) or right-preconditioned GMRES
+        without restart (``"gmres"``/``"fgmres"``).  Returns (x, residual
+        norms [max_it + 1]) as device tensors, x in the caller's order;
+        the caller judges convergence from the norms.  Under
+        full_smoothing_up_and_down the cycle is ``vcycle_full``, as in
+        ``solve`` (the reference's solve_device runs the Kaskade cycle
+        there, pflare_tpu/air/pcair.py:452-458)."""
+        if ksp == "richardson":
+            solver = richardson_fixed
+        elif ksp in ("gmres", "fgmres"):
+            solver = gmres_right_fixed
+        else:
+            raise ValueError(f"unknown ksp {ksp!r}")
         dh = self.upload()
-        x0 = None if x0 is None else self._vector(x0)
-        return richardson_fixed(dh.top.matvec, self._precond(dh),
-                                self._vector(b), max_it, x0=x0)
+        x0 = None if x0 is None else self._to_internal(self._vector(x0))
+        x, norms = solver(dh.top.matvec, self._precond(dh),
+                          self._to_internal(self._vector(b)), max_it, x0=x0)
+        return self._from_internal(x), norms
+
+    # ~~~~~~~~~~ introspection ~~~~~~~~~~
+    def stats(self):
+        return compute_stats(self.hierarchy)
+
+    def view(self, out=print):
+        """Print the configuration (the PCView analogue, reference:
+        src/PCAIR.c:3034-3599)."""
+        o = self.options
+        lines = [
+            "PCAIR (reduction multigrid with approximate ideal restriction)",
+            f"  levels requested/built: {o.max_levels}/{self.n_levels}",
+            f"  CF splitting: {o.cf_splitting_type.name}, strong threshold "
+            f"{o.strong_threshold}, luby steps {o.max_luby_steps}, "
+            f"ddc its {o.ddc_its} fraction {o.ddc_fraction}",
+            f"  Z: {o.z_type.name}"
+            + (f", lair distance {o.lair_distance}" if o.z_type.value else "")
+            + f", strong R threshold {o.strong_r_threshold}",
+            "  prolongator: "
+            + ("one-point classical" if o.one_point_classical_prolong
+               else "ideal")
+            + (", symmetric (R^T)" if o.symmetric else ""),
+            f"  A_ff inverse: {o.inverse_type.name}, order {o.poly_order}, "
+            f"sparsity order {o.inverse_sparsity_order}, "
+            f"{'matrix-free' if o.matrix_free_polys else 'assembled'}"
+            + (", diag-scaled" if o.diag_scale_polys else ""),
+            f"  smoothing: {o.smooth_order} "
+            f"({'full up/down' if o.full_smoothing_up_and_down else 'F/C Kaskade'})",
+            f"  coarse solver: {o.coarsest_inverse_type.name}, order "
+            f"{o.coarsest_poly_order}, "
+            f"{'matrix-free' if o.coarsest_matrix_free_polys else 'assembled'}",
+            f"  drop: r_drop {o.r_drop}, a_drop {o.a_drop}, "
+            f"lump {o.a_lump}",
+            f"  reuse: sparsity {o.reuse_sparsity}, amount {o.reuse_amount}, "
+            f"poly coeffs {o.reuse_poly_coeffs}",
+        ]
+        if self.hierarchy is not None:
+            s = compute_stats(self.hierarchy)
+            lines.append(
+                f"  complexities: grid {s['grid_complexity']:.3f}, operator "
+                f"{s['operator_complexity']:.3f}, cycle "
+                f"{s['cycle_complexity']:.3f}, storage "
+                f"{s['storage_complexity']:.3f}")
+        for ln in lines:
+            out(ln)
+        return "\n".join(lines)

@@ -1,7 +1,11 @@
 from .strength import strength_matrix
 from .pmisr import pmisr, pmisr_existing_measure
 from .ddc import ddc
-from .splitting import compute_cf_splitting, cf_to_is
+from .aggregation import serial_aggregation
+from .cr import cr_pass
+from .splitting import (cf_to_is, compute_cf_splitting,
+                        compute_diag_dom_submatrix, first_pass_splitting)
 
 __all__ = ["strength_matrix", "pmisr", "pmisr_existing_measure", "ddc",
-           "compute_cf_splitting", "cf_to_is"]
+           "serial_aggregation", "cr_pass", "compute_cf_splitting",
+           "compute_diag_dom_submatrix", "first_pass_splitting", "cf_to_is"]

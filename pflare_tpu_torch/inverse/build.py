@@ -25,7 +25,8 @@ from ..params import InverseType, tolerances
 from ..sparse import ELL, SparsityPattern
 from ..sparse.spgemm import FixedSparsityPolyPlan
 from .gmres_poly import coefficients_arnoldi, coefficients_power, horner
-from .newton import build_newton_program, newton_apply, newton_roots
+from .newton import (build_newton_program, newton_apply, newton_residual_apply,
+                     newton_roots)
 from .sai import sai_inverse
 
 
@@ -104,6 +105,16 @@ class Inverse:
             xin = x / self.diag if self.scaled else x
             return newton_apply(self._matvec(), self.steps, xin)
         raise ValueError(self.kind)
+
+    def apply_residual(self, x):
+        """pi(A) x, the residual polynomial of a matrix-free Newton inverse
+        (reference: src/Gmres_Poly_Newton.F90:966)."""
+        if self.kind != "newton_mf":
+            raise ValueError("the residual polynomial is applied only for "
+                             "newton_mf")
+        xin = x / self.diag if self.scaled else x
+        y = newton_residual_apply(self._matvec(), self.steps, xin)
+        return y * self.diag if self.scaled else y
 
     def __call__(self, x):
         return self.apply(x)

@@ -245,3 +245,17 @@ def newton_apply(matvec, steps, x):
     if y is None:
         y = x * 0
     return y
+
+
+def newton_residual_apply(matvec, steps, x):
+    """The residual polynomial pi(A) x (Loe Alg. 1; reference:
+    src/Gmres_Poly_Newton.F90:1003-1090)."""
+    y = x
+    for op in steps:
+        if op[0] in ("real", "real_last"):
+            y = y - matvec(y) / op[1]
+        else:
+            a, s = op[1], op[2]
+            t2 = matvec(y)
+            y = y + (matvec(t2) - 2.0 * a * t2) / s
+    return y

@@ -11,11 +11,12 @@ I = J, a square solve.  SAI: I = shadow(J), the columns reachable from
 the rows J, a least-squares solve.  A square approximate inverse
 (reference: src/SAI_Z.F90:781) is the same with A_cf = -I.
 
-All rows are padded to a common block size per chunk and solved as one
-batched dense QR; padded columns get disjoint unit rows in an
-augmentation block, so the normal equations decouple exactly and padded
-unknowns come out 0.  Rank-deficient blocks are redone one row at a time
-by ``_sai_z_loop``, the oracle.
+Rows are grouped by their unknown count and solved one chunk at a time,
+ISAI as a batched LU solve and SAI as a batched dense QR with the shadow
+padded by zero rows to its chunk's largest height: no unknown is padded,
+so the dense work is each row's own (lAIR's coarse levels mix rows of 1
+to ~200 unknowns).  Singular and rank-deficient blocks are redone one row
+at a time by ``_sai_z_loop``, the oracle.
 """
 
 from __future__ import annotations
@@ -23,41 +24,13 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from ..params import tolerances
 
-# f64 scalars gathered per chunk (blocks + rhs): bounds the peak memory
-_CHUNK_SCALARS = 1 << 24
+# f64 scalars of the blocks of one chunk: bounds the peak memory
+_CHUNK_SCALARS = 1 << 22
 
 
 def _rows_of(A):
     return np.repeat(np.arange(A.shape[0], dtype=np.int64), np.diff(A.indptr))
-
-
-def _sv_cutoff(dtype) -> float:
-    """dtype-matched relative singular-value cutoff (sigma_drop: 1e-13 in
-    f64, 1e-6 in f32)."""
-    return float(tolerances(np.dtype(dtype).type).sigma_drop)
-
-
-def _lookup_pos(A, rows, cols):
-    """Position of each (row, col) in A's sorted entry list; -1 when
-    absent.  Safe on an empty A."""
-    keys = _rows_of(A) * np.int64(A.shape[1]) + A.indices
-    q = (rows.astype(np.int64) * np.int64(A.shape[1])
-         + cols.astype(np.int64))
-    if len(keys) == 0:
-        return np.full(q.shape, -1, dtype=np.int64)
-    pos = np.searchsorted(keys, q.ravel())
-    pos_c = np.minimum(pos, len(keys) - 1)
-    ok = keys[pos_c] == q.ravel()
-    return np.where(ok, pos_c, -1).reshape(q.shape)
-
-
-def _csr_lookup(A, rows, cols):
-    """A[rows, cols] (any equal shapes), 0 outside the pattern; A must
-    have sorted indices."""
-    pos = _lookup_pos(A, np.asarray(rows), np.asarray(cols))
-    return np.where(pos >= 0, A.data[np.maximum(pos, 0)], 0.0)
 
 
 def _pad_indices(M: sp.csr_matrix):
@@ -111,45 +84,27 @@ def _sai_z_batched(A_ff, A_cf, S, incomplete: bool) -> sp.csr_matrix:
         I_idx, I_mask, kI = J_idx, J_mask, kJ
     else:
         I_idx, I_mask, kI = _pad_indices(_shadow(S, A_ff))
-    imax = I_idx.shape[1]
 
     out_data = np.zeros((n_rows, kmax))
-    rows_per_chunk = max(1, _CHUNK_SCALARS // max(1, kmax * (imax + kmax)))
     bad_rows: list[int] = []
-    # rows by descending block height, so each chunk pads only to its own
-    # sizes (the SAI shadow's heights vary a lot)
-    order = np.argsort(-kI, kind="stable")
+    # rows grouped by their exact unknown count kJ, each group by
+    # descending block height: no chunk pads its unknowns, and the SAI
+    # shadow's heights pad only to their chunk's own
+    order = np.lexsort((-kI, -kJ))
     order = order[kJ[order] > 0]
-    for lo in range(0, len(order), rows_per_chunk):
-        sel = order[lo: lo + rows_per_chunk]
-        kc = int(kJ[sel].max())
-        ic = int(kI[sel].max())
-        pad_eye = np.eye(kc)
-        Jc, Jm = J_idx[sel][:, :kc], J_mask[sel][:, :kc]   # [b, kc]
-        Ic, Im = I_idx[sel][:, :ic], I_mask[sel][:, :ic]   # [b, ic]
-        b = len(sel)
-        # M[r, a, c] = A_ff[J_c, I_a] (the transposed local block), plus a
-        # unit row per padded column so that z_pad == 0
-        M = _csr_lookup(A_ff, Jc[:, None, :], Ic[:, :, None])  # [b, ic, kc]
-        M *= (Im[:, :, None] & Jm[:, None, :])
-        aug = np.broadcast_to(pad_eye, (b, kc, kc)) * ~Jm[:, None, :]
-        M_ext = np.concatenate([M, aug], axis=1)    # [b, ic+kc, kc]
-        rhs = -_csr_lookup(A_cf, np.broadcast_to(sel[:, None], Ic.shape), Ic)
-        rhs *= Im
-        rhs_ext = np.concatenate([rhs, np.zeros((b, kc))], axis=1)
-
-        Q, R = np.linalg.qr(M_ext)                  # batched reduced QR
-        qtb = np.einsum("bij,bi->bj", Q, rhs_ext)
-        rdiag = np.abs(np.diagonal(R, axis1=1, axis2=2))
-        good = rdiag.min(axis=1) > 1e-12 * np.maximum(rdiag.max(axis=1),
-                                                      1e-300)
-        with np.errstate(all="ignore"):
-            z = np.linalg.solve(
-                R + 1e-300 * np.broadcast_to(pad_eye, R.shape),
-                qtb[..., None])[..., 0]
-        good &= np.isfinite(z).all(axis=1)
-        out_data[sel, :kc] = np.where(good[:, None], z, 0.0)
-        bad_rows.extend(int(r) for r in sel[~good])
+    groups = np.split(order, np.flatnonzero(np.diff(kJ[order])) + 1)
+    for group in groups:
+        if len(group) == 0:
+            continue
+        kc = int(kJ[group[0]])
+        step = max(1, _CHUNK_SCALARS // (kc * (int(kI[group[0]]) + kc)))
+        for lo in range(0, len(group), step):
+            sel = group[lo: lo + step]
+            z, good = _solve_chunk(A_ff, A_cf, sel, J_idx[sel][:, :kc],
+                                   I_idx[sel], I_mask[sel],
+                                   int(kI[sel].max()), incomplete)
+            out_data[sel, :kc] = z
+            bad_rows.extend(int(r) for r in sel[~good])
 
     if bad_rows:
         # rank-deficient local blocks: the per-row min-norm solve
@@ -167,6 +122,68 @@ def _sai_z_batched(A_ff, A_cf, S, incomplete: bool) -> sp.csr_matrix:
         shape=S.shape)
     Z.sort_indices()
     return Z
+
+
+def _block_values(A, row_of, Ic, Im):
+    """Dense local blocks out of the csr ``A``, without a lookup per slot:
+    out[r, a, c] = A[row_of[r, c], Ic[r, a]] for the valid slots (Im) of
+    the sorted rows of Ic, 0 elsewhere.  Each entry of the rows
+    ``row_of`` is matched to its slot a by one search in the chunk's own
+    (row, column) keys.  ``row_of`` is [b, kc]; the result [b, ic, kc]."""
+    b, kc = row_of.shape
+    ic = Ic.shape[1]
+    n_cols = np.int64(A.shape[1])
+    # the chunk's valid (r, I) keys, sorted (Ic is sorted within a row)
+    r_of_slot, a_of_slot = np.nonzero(Im)
+    keys = r_of_slot * n_cols + Ic[r_of_slot, a_of_slot]
+    starts = A.indptr[row_of].ravel()
+    lens = (A.indptr[row_of + 1] - A.indptr[row_of]).ravel()
+    owner = np.repeat(np.arange(b * kc), lens)        # flat (r, c) slot
+    ent = (np.arange(int(lens.sum()), dtype=np.int64)
+           - np.repeat(np.cumsum(lens) - lens, lens) + np.repeat(starts, lens))
+    r = owner // kc
+    q = r * n_cols + A.indices[ent]
+    pos = np.minimum(np.searchsorted(keys, q), max(len(keys) - 1, 0))
+    hit = (len(keys) > 0) & (keys[pos] == q)
+    out = np.zeros((b, ic, kc))
+    out[r[hit], a_of_slot[pos[hit]], (owner % kc)[hit]] = A.data[ent[hit]]
+    return out
+
+
+def _solve_chunk(A_ff, A_cf, sel, Jc, I_idx, I_mask, ic, incomplete):
+    """Local solves of the rows ``sel``, which share their unknown count
+    kc = Jc.shape[1], on the transposed blocks M[r, a, c] = A_ff[J_c, I_a]
+    ([b, ic, kc], rows of the padded I slots zero).  Returns (z [b, kc],
+    good [b]); z is 0 where a row is not good, and ``_sai_z_loop`` redoes
+    it.  ISAI (square, I = J): one batched LU solve, which is what the
+    loop computes for every nonsingular block; a singular block makes the
+    whole chunk not good.  SAI: a batched reduced QR, and a row is not
+    good when its block is rank-deficient (|R_ii| below 1e-12 of the
+    largest) or its solution is not finite."""
+    kc = Jc.shape[1]
+    Ic, Im = I_idx[:, :ic], I_mask[:, :ic]
+    M = _block_values(A_ff, Jc, Ic, Im)                      # [b, ic, kc]
+    rhs = -_block_values(A_cf, sel[:, None], Ic, Im)[:, :, 0]
+    if incomplete:
+        try:
+            z = np.linalg.solve(M, rhs[..., None])[..., 0]
+        except np.linalg.LinAlgError:
+            return np.zeros((len(sel), kc)), np.zeros(len(sel), dtype=bool)
+        good = np.isfinite(z).all(axis=1)
+        return np.where(good[:, None], z, 0.0), good
+    if ic < kc:
+        # fewer equations than unknowns: zero rows keep R square, and the
+        # rank test sends the row to the per-row min-norm solve
+        M = np.concatenate([M, np.zeros((len(sel), kc - ic, kc))], axis=1)
+        rhs = np.concatenate([rhs, np.zeros((len(sel), kc - ic))], axis=1)
+    Q, R = np.linalg.qr(M)                      # batched reduced QR
+    qtb = np.einsum("bij,bi->bj", Q, rhs)
+    rdiag = np.abs(np.diagonal(R, axis1=1, axis2=2))
+    good = rdiag.min(axis=1) > 1e-12 * np.maximum(rdiag.max(axis=1), 1e-300)
+    with np.errstate(all="ignore"):
+        z = np.linalg.solve(R + 1e-300 * np.eye(kc), qtb[..., None])[..., 0]
+    good &= np.isfinite(z).all(axis=1)
+    return np.where(good[:, None], z, 0.0), good
 
 
 def _sai_z_loop(A_ff, A_cf, S, incomplete: bool) -> sp.csr_matrix:

@@ -45,6 +45,7 @@ _SIGNATURES = (
     ("poly_on_sparsity", None, "pppppnnpnp", _ALL),
     ("newton_on_sparsity", None, "pppppnnppndp", _ALL),
     ("one_point_strongest", ctypes.c_int64, "pppnp", _ALL),
+    ("aggregation", ctypes.c_int64, "ppnpp", ("",)),
 )
 _CTYPES = {"p": ctypes.c_void_p, "n": ctypes.c_int64, "d": ctypes.c_double,
            "i": ctypes.c_int}
@@ -354,3 +355,17 @@ def one_point_strongest_native(A):
                        out_cols[keep], out_indptr), shape=A.shape)
     W.has_sorted_indices = True
     return W
+
+
+def aggregation_native(indptr, indices, cf, aggregates):
+    """The sequential root-node aggregation sweeps; fills the int64 arrays
+    ``cf`` and ``aggregates`` in place.  Returns the aggregate count, or
+    None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if cf.dtype != np.int64 or aggregates.dtype != np.int64:
+        raise TypeError("aggregation_native: cf and aggregates must be int64")
+    indptr, indices = _c(indptr, np.int64), _c(indices, np.int64)
+    return lib.aggregation(_p(indptr), _p(indices), len(indptr) - 1, _p(cf),
+                           _p(aggregates))

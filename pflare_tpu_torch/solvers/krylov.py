@@ -123,12 +123,18 @@ def _givens_solve(H, g, m):
 
 def gmres(A, b, x0=None, M=None, side="left", restart=30, rtol=1e-5,
           atol=1e-50, max_it=10000) -> SolveResult:
-    """Restarted GMRES with left/right preconditioning (PETSc-style defaults).
+    """Restarted GMRES with left, right or flexible preconditioning
+    (PETSc-style defaults).
 
     ``M`` applies the (approximate) inverse preconditioner.  Arnoldi uses
     modified Gram-Schmidt; the small least-squares problem is maintained
     incrementally with Givens rotations (O(m) per iteration).
+    ``side="flexible"`` is right preconditioning that keeps each
+    direction M(v_j) and sums those at the update, so M may change from
+    one iteration to the next (FGMRES).
     """
+    if side not in ("left", "right", "flexible"):
+        raise ValueError(f"unknown side {side!r}")
     matvec = as_operator(A)
     M = M or (lambda r: r)
     x = torch.zeros_like(b) if x0 is None else x0
@@ -145,7 +151,8 @@ def gmres(A, b, x0=None, M=None, side="left", restart=30, rtol=1e-5,
     else:
         rhs_norm = _norm(b)
     if rhs_norm == 0.0:
-        rhs_norm = r0_norm if r0_norm > 0 else 1.0
+        # FGMRES measures a zero RHS against 1, as the reference does
+        rhs_norm = r0_norm if r0_norm > 0 and side != "flexible" else 1.0
     tol = max(rtol * rhs_norm, atol)
     norms = [r0_norm]
     if r0_norm <= tol:
@@ -159,6 +166,7 @@ def gmres(A, b, x0=None, M=None, side="left", restart=30, rtol=1e-5,
         if beta <= tol:
             return SolveResult(x, total_it, True, norms)
         V = [r / beta]
+        Z = []      # the flexible directions M(v_j)
         H = np.zeros((restart + 1, restart))
         cs = np.zeros(restart)
         sn = np.zeros(restart)
@@ -171,8 +179,11 @@ def gmres(A, b, x0=None, M=None, side="left", restart=30, rtol=1e-5,
             v = V[j]
             if side == "left":
                 w = M(matvec(v))
-            else:
+            elif side == "right":
                 w = matvec(M(v))
+            else:
+                Z.append(M(v))
+                w = matvec(Z[-1])
             w, hj1 = _mgs(V, w, H, j)
             H[j + 1, j] = hj1
             m_used = j + 1
@@ -185,9 +196,10 @@ def gmres(A, b, x0=None, M=None, side="left", restart=30, rtol=1e-5,
         # update x
         if m_used > 0:
             y = _givens_solve(H, g, m_used)
-            update = V[0] * float(y[0])
+            basis = Z if side == "flexible" else V
+            update = basis[0] * float(y[0])
             for i in range(1, m_used):
-                update = update + V[i] * float(y[i])
+                update = update + basis[i] * float(y[i])
             if side == "right":
                 update = M(update)
             x = x + update
@@ -197,3 +209,10 @@ def gmres(A, b, x0=None, M=None, side="left", restart=30, rtol=1e-5,
         if rn <= tol:
             return SolveResult(x, total_it, True, norms)
     return SolveResult(x, total_it, False, norms)
+
+
+def fgmres(A, b, x0=None, M=None, restart=30, rtol=1e-5, atol=1e-50,
+           max_it=10000) -> SolveResult:
+    """Restarted flexible GMRES: ``gmres`` with ``side="flexible"``."""
+    return gmres(A, b, x0=x0, M=M, side="flexible", restart=restart,
+                 rtol=rtol, atol=atol, max_it=max_it)

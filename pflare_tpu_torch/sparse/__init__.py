@@ -2,5 +2,7 @@ from .pattern import SparsityPattern
 from .ell import ELL, TELL
 from .dia import DIA
 from .banded import BandedSpMV
+from .ops import remove_from_sparse_match, remove_small_from_sparse
 
-__all__ = ["SparsityPattern", "ELL", "TELL", "DIA", "BandedSpMV"]
+__all__ = ["SparsityPattern", "ELL", "TELL", "DIA", "BandedSpMV",
+           "remove_from_sparse_match", "remove_small_from_sparse"]

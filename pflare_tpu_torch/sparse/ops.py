@@ -118,6 +118,76 @@ def remove_small_from_sparse(
     return out
 
 
+def remove_from_sparse_match(A, pattern_mat, lump: bool = False,
+                             alpha: float | None = None) -> sp.csr_matrix:
+    """Restrict the values of A onto the sparsity of ``pattern_mat``
+    (reference: src/PETSc_Helper.F90:490).  With ``lump`` the entries of A
+    outside the pattern are added to the output diagonal.  With ``alpha``
+    the result is ``pattern_mat + alpha * A|pattern``; otherwise values are
+    replaced (pattern entries absent from A become 0)."""
+    A = _canon(A)
+    P = _canon(pattern_mat)
+    n_rows, n_cols = P.shape
+
+    a_rows = row_of_entries(A)
+    keysP = row_of_entries(P) * np.int64(n_cols) + P.indices
+    keysA = a_rows * np.int64(n_cols) + A.indices
+    pos = np.searchsorted(keysP, keysA)
+    pos_c = np.minimum(pos, max(len(keysP) - 1, 0))
+    inside = (len(keysP) > 0) & (keysP[pos_c] == keysA)
+
+    new_data = np.zeros(P.nnz, dtype=A.data.dtype)
+    # canonical CSR keys are unique, so plain fancy assignment is exact
+    new_data[pos_c[inside]] = A.data[inside]
+    if alpha is not None:
+        new_data = P.data + alpha * new_data
+
+    out = sp.csr_matrix((new_data, P.indices.copy(), P.indptr.copy()),
+                        shape=P.shape)
+    if lump:
+        outside = ~inside
+        if np.any(outside):
+            lump_vec = np.bincount(a_rows[outside], weights=A.data[outside],
+                                   minlength=n_rows)
+            dpos = _diag_positions(P)
+            has_diag = dpos >= 0
+            out.data[dpos[has_diag]] += lump_vec[has_diag]
+    return out
+
+
+def _diag_positions(P: sp.csr_matrix) -> np.ndarray:
+    """Entry position of each row's diagonal in a canonical csr, -1 where
+    the row holds none."""
+    n_rows, n_cols = P.shape
+    n = min(n_rows, n_cols)
+    keys = row_of_entries(P) * np.int64(n_cols) + P.indices
+    q = (np.arange(n, dtype=np.int64) * np.int64(n_cols)
+         + np.arange(n, dtype=np.int64))
+    pos = np.searchsorted(keys, q)
+    pos_c = np.minimum(pos, max(len(keys) - 1, 0))
+    ok = (len(keys) > 0) & (keys[pos_c] == q)
+    out = np.full(n_rows, -1, dtype=np.int64)
+    out[:n] = np.where(ok, pos_c, -1)
+    return out
+
+
+def identity_csr(n: int, value: float = 1.0) -> sp.csr_matrix:
+    return sp.csr_matrix(
+        (np.full(n, value), (np.arange(n), np.arange(n))), shape=(n, n))
+
+
+def symbolic_matmat(A, B) -> sp.csr_matrix:
+    """Symbolic SpGEMM: the pattern of A @ B with unit values (reference:
+    src/PETSc_Helper.F90:1639)."""
+    Ab = sp.csr_matrix(
+        (np.ones(A.nnz, dtype=np.float64), A.indices, A.indptr), shape=A.shape)
+    Bb = sp.csr_matrix(
+        (np.ones(B.nnz, dtype=np.float64), B.indices, B.indptr), shape=B.shape)
+    C = _canon(Ab @ Bb)
+    C.data[:] = 1.0
+    return C
+
+
 def one_point_strongest(A_fc) -> sp.csr_matrix:
     """One-point classical prolongator W: strongest |entry| per row -> 1.0
     (reference: src/Grid_Transfer.F90:26).  Rows with no entries stay empty."""

@@ -14,6 +14,22 @@ import torch
 
 _TIMERS: dict[str, float] = {}
 
+# the reference's printed timer names (src/Timers.F90:31-70), so output
+# parsers carry over
+LABELS = {
+    "air_setup": "Total setup time",
+    "air_coarsen": "CF splitting time",
+    "air_extract": "Submatrix extraction time",
+    "air_inverse": "Approximate inverse time",
+    "air_prolong": "Prolongator time",
+    "air_restrict": "Restrictor time",
+    "air_rap": "RAP time",
+    "air_drop": "Drop tolerance time",
+    "air_identity": "Identity/IS time",
+    "air_constrain": "Constraint time",
+    "air_repartition": "Repartition time",
+}
+
 
 @contextmanager
 def timer(name: str):
@@ -30,6 +46,12 @@ def reset_timers():
 
 def get_timers() -> dict:
     return dict(_TIMERS)
+
+
+def print_timers():
+    for name, label in LABELS.items():
+        if name in _TIMERS:
+            print(f" {label} : {_TIMERS[name]:.6f}")
 
 
 def device_sync_read(*tensors) -> float:

@@ -272,12 +272,20 @@ def test_numpy_fallbacks_match_native(monkeypatch):
 
 
 def test_unported_options_are_refused():
+    """Every AIROptions field but reuse_sparsity is honoured: only sparsity
+    reuse is refused, before any setup runs."""
     tpf.PCAIR(tpf.AIROptions(inverse_type="SAI",
                              coarsest_inverse_type="LU"), **F64)
-    with pytest.raises(NotImplementedError):
-        tpf.PCAIR(tpf.AIROptions(symmetric=True), **F64)
-    with pytest.raises(NotImplementedError):
-        tpf.PCAIR(tpf.AIROptions().with_smooth_type("fcf"), **F64)
+    tpf.PCAIR(tpf.AIROptions(symmetric=True, reorder="rcm",
+                             full_smoothing_up_and_down=True,
+                             cf_splitting_type="CR", z_type="LAIR",
+                             one_point_classical_prolong=False,
+                             constrain_w=True, improve_z_its=1,
+                             strong_r_threshold=0.1,
+                             auto_truncate_start_level=2), **F64)
+    tpf.PCAIR(tpf.AIROptions().with_smooth_type("fcf"), **F64)
+    with pytest.raises(NotImplementedError, match="reuse_sparsity"):
+        tpf.PCAIR(tpf.AIROptions(reuse_sparsity=True), **F64)
     pc = tpf.PCAIR(**F64)
     with pytest.raises(RuntimeError):
         pc.apply(np.zeros(4))

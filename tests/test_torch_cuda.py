@@ -228,3 +228,36 @@ def test_pcpflareinv_card_matches_cpu(kw):
         A).solve(b, max_it=30)
     assert res.iterations == ref.iterations
     assert np.max(np.abs(res.history - ref.history)) <= 1e-8 * ref.history[0]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(z_type="LAIR", smooth_order="fcf"),
+    dict(full_smoothing_up_and_down=True, inverse_type="ARNOLDI"),
+    dict(symmetric=True, one_point_classical_prolong=False),
+    dict(reorder="rcm", cf_splitting_type="PMIS_AGG")],
+    ids=["lair-fcf", "full-smoothing", "symmetric", "rcm-pmis-agg"])
+def test_air_options_card_match_cpu(kw):
+    """The AIR option paths on the card: right GMRES and the device GMRES
+    give the CPU run's histories (one host setup, ``PCAIR.on``) to 1e-8
+    of each norm or 1e-12 of the first, x in the caller's order."""
+    dev = _card()
+    diffusion = kw.get("symmetric") or kw.get("full_smoothing_up_and_down")
+    A = tpf.adv_diff_2d(48, alpha=1.0 if diffusion else 0.0)
+    if kw.get("reorder"):
+        p = np.random.default_rng(8).permutation(A.shape[0])
+        A = sp.csr_matrix(A[p][:, p])
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    pc = tpf.PCAIR(tpf.AIROptions().replace(**kw), dtype=torch.float64,
+                   device=dev).setup(A)
+    cpu = pc.on("cpu")
+    res = pc.solve(b, side="right", rtol=1e-10, max_it=60)
+    ref = cpu.solve(b, side="right", rtol=1e-10, max_it=60)
+    assert res.iterations == ref.iterations and res.converged
+    h, hr = res.history, ref.history
+    assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0])
+    x, norms = pc.solve_device(b, max_it=6, ksp="gmres")
+    _, ref_norms = cpu.solve_device(b, max_it=6, ksp="gmres")
+    assert torch.allclose(norms.cpu(), ref_norms, rtol=1e-8,
+                          atol=1e-12 * float(ref_norms[0]))
+    true = np.linalg.norm(A @ x.cpu().numpy() - b) / np.linalg.norm(b)
+    assert abs(true - float(norms[-1] / norms[0])) <= 1e-8 + 1e-6 * true

@@ -59,6 +59,31 @@ def test_generators_match_reference_bitwise():
     assert np.array_equal(A.data, B.data)
 
 
+_GENERATORS = {
+    "adv_1d": [(30,)],
+    "adv_diff_3d": [(10,), (7, 6, 5), dict(nx=6, alpha=1.0),
+                    dict(nx=6, curved_velocity=True)],
+    "anisotropic_diffusion_2d": [(24, 1e-3), dict(nx=12, theta=0.4)],
+    "dg_upwind_advection_unstructured": [(24,), dict(
+        n_side=16, curved_velocity=True)],
+}
+
+
+@pytest.mark.parametrize("name", list(_GENERATORS))
+def test_option_generators_match_reference_bitwise(name):
+    """The generators of the AIR option tests, bit for bit with the
+    reference's (the port vectorises the loops of adv_diff_3d and
+    anisotropic_diffusion_2d)."""
+    for args in _GENERATORS[name]:
+        kw = args if isinstance(args, dict) else {}
+        pos = () if isinstance(args, dict) else args
+        A = getattr(pflare_tpu.problems, name)(*pos, **kw)
+        B = getattr(pflare_tpu_torch, name)(*pos, **kw)
+        assert A.shape == B.shape
+        for attr in ("indptr", "indices", "data"):
+            assert np.array_equal(getattr(A, attr), getattr(B, attr)), args
+
+
 # each module of the approximate-inverse slice, driven alone in a fresh
 # interpreter with the build directory empty and the compiler recorded
 # (every compile "fails", so the host kernels fall back to numpy)
@@ -73,6 +98,28 @@ _SLICE_JOBS = {
         "A = adv_diff_2d(8)\n"
         "m.FixedSparsityPolyPlan(SparsityPattern(A.indptr, A.indices, "
         "A.shape), 3, 2).execute_host(A, np.ones(4))\n"),
+    "pflare_tpu_torch.cf.aggregation": (
+        "from pflare_tpu_torch.cf import strength_matrix\n"
+        "m.serial_aggregation(strength_matrix(adv_diff_2d(8), 0.5))\n"),
+    "pflare_tpu_torch.cf.cr": (
+        "m.cr_pass(adv_diff_2d(8), -np.ones(64, dtype=np.int64), 0.1)\n"),
+    "pflare_tpu_torch.air.constrain": (
+        "A = adv_diff_2d(8)\n"
+        "v = [np.ones(64)]\n"
+        "m.smooth_near_nullspace(A, v, None)\n"
+        "m.constrain_grid_transfer(A[:, :20].tocsr(), v, [np.ones(20)], "
+        "False)\n"),
+    "pflare_tpu_torch.air.stats": (
+        "from pflare_tpu_torch import PCAIR, AIROptions\n"
+        "pc = PCAIR(AIROptions().replace(smooth_order='fcf', z_type='LAIR', "
+        "cf_splitting_type='PMIS_AGG'), dtype=torch.float64, "
+        "device='cpu').setup(adv_diff_2d(16))\n"
+        "m.compute_stats(pc.hierarchy)\n"
+        "pc.solve(np.ones(256), ksp='fgmres', max_it=5)\n"),
+    "pflare_tpu_torch.parallel.repartition": (
+        "A = adv_diff_2d(24)\n"
+        "p = np.random.default_rng(0).permutation(576)\n"
+        "m.coarse_repartition_perm(A[p][:, p])\n"),
 }
 
 
@@ -106,7 +153,7 @@ def test_slice_module_stands_alone(module):
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
-    if module.endswith("pcpflareinv"):
+    if module.endswith(("pcpflareinv", "stats")):
         assert got["srcs"]            # the setup asked for the host kernels
     pkg = os.path.realpath(os.path.dirname(pflare_tpu_torch.__file__))
     for src in got["srcs"]:

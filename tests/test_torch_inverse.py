@@ -22,6 +22,7 @@ from pflare_tpu.sparse.pattern import SparsityPattern as JPattern
 from pflare_tpu.sparse.spgemm import FixedSparsityPolyPlan as JPlan
 import pflare_tpu_torch as tpf
 from pflare_tpu_torch import InverseType as T
+from pflare_tpu_torch.air.operators import extract_submatrices
 from pflare_tpu_torch.inverse import build_inverse
 from pflare_tpu_torch.inverse import sai as tsai
 from pflare_tpu_torch.inverse.gmres_poly import (coefficients_arnoldi,
@@ -136,10 +137,11 @@ def test_sai_z_level0_matches_reference(host_kernels):
                                   strong_threshold=0.99),
                    dtype=F64, device="cpu").setup(tpf.adv_diff_2d(64))
     lvl = pc.hierarchy.levels[0]
+    # the level keeps A_cf only for C-point smoothing
+    A_cf = extract_submatrices(lvl.A, lvl.fine, lvl.coarse)[2]
     for incomplete in (True, False):
-        ref = jsai.sai_z(lvl.A_ff, lvl.A_cf, lvl.A_cf, incomplete,
-                         device=False)
-        Z = tsai.sai_z(lvl.A_ff, lvl.A_cf, lvl.A_cf, incomplete)
+        ref = jsai.sai_z(lvl.A_ff, A_cf, A_cf, incomplete, device=False)
+        Z = tsai.sai_z(lvl.A_ff, A_cf, A_cf, incomplete)
         _same_csr(ref, Z, 1e-12)
 
 
