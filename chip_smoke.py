@@ -21,12 +21,19 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
    launch counter at 0 before it: convergence to rtol 1e-5, the true
    residual against scipy, and both kernels launched;
 6. the f64 parity configuration at 512^2: full depth, right GMRES from
-   x0 = 1 with a zero RHS, rtol 1e-10, <= 6 iterations;
+   x0 = 1 with a zero RHS, rtol 1e-10, <= 6 iterations, by the default
+   (stationary) GMRES and by the host-driven one (``eager=True``), twice
+   each in the order stationary, eager, eager, stationary: equal
+   iterations, histories equal to 1e-8 of each norm (or 1e-12 of the
+   first), each solve's seconds and host reads (counted by the solvers);
 7. the main path at 2048^2, with 10 levels so that its coarsest grid
    stays near the 512^2 path's size, with the launch counters at 0
-   before it and both kernels launched; then, after every timed solve,
-   one more 512^2 and one more 2048^2 solve under torch.profiler for
-   each kernel's device time per call in the solve;
+   before it and both kernels launched; right GMRES to rtol 1e-5 by
+   both GMRES paths as in phase 6, with the counters at 0 before each:
+   equal iterations, the true residual by scipy <= 1e-4, both kernels
+   launched; then, after every timed solve, one more 512^2 and one more
+   2048^2 solve under torch.profiler for each kernel's device time per
+   call in the solve;
 8. each kernel against its plain version (f32 and f64) on every DIA and
    banded operator of the 2048^2 hierarchy, and the timings of phase 4
    at the 2048^2 shapes;
@@ -64,7 +71,22 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     GMRES, each with the launch counters at 0 before it, more DIA
     launches a Richardson iteration than phase 7, the true residual by
     scipy within 10% of the reported one, then one more Richardson solve
-    under torch.profiler.
+    under torch.profiler;
+11. same-pattern re-setup: (a) at 512^2, f64, the bench's options and
+    depth with ``reuse_sparsity``: every ``reuse_amount`` with and
+    without ``reuse_poly_coeffs`` (``PHASE11_SETS``), the generic reuse
+    path (plans popped) against the plan re-setup (operators within
+    1e-11), ``set_poly_coefficients`` (a fresh setup reproduces the
+    history to 1e-12) and ``freeze``; each set up on A512, re-set up on
+    its seeded perturbation (``setup(A2, "same")``) and solved by right
+    GMRES to rtol 1e-10 on the card and on a CPU twin made after the
+    re-setup (phase 10's rule, the DIA kernel launched); (b) at 2048^2,
+    the phase-7 options with ``reuse_amount=2``, set up from the f64
+    matrix for an f32 solve (the plan re-setup computes in f64, as the
+    reference's does), re-set up by its plans: first setup, re-setup,
+    their ratio and the ``resetup_*`` split, the upload, and
+    ``solve_device`` with 10 Richardson iterations and the counters at
+    0: rtol 1e-5, the true residual <= 1e-4, both kernels launched.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -158,6 +180,35 @@ def graph_ms(torch, fns):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (R * REPLAYS)
+
+
+def gmres_paths(pcx, b, **kw):
+    """Two ``pcx.solve`` by each GMRES path, the stationary default and
+    the host-driven ``eager=True``, in the order stationary, eager, eager,
+    stationary (the first solve pays first-call costs), with the kernel
+    launch counters at 0 before each: {path: (result, "s1 / s2" seconds
+    to completion, the solver's host reads, {"dia", "banded"} launches),
+    the last three of the path's second solve}."""
+    from pflare_tpu_torch.solvers import jitted, krylov
+    from pflare_tpu_torch.sparse import banded as tbanded
+    from pflare_tpu_torch.sparse import dia as tdia
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    out, seconds = {}, {}
+    stationary, eager = ("stationary", False, jitted), ("eager", True, krylov)
+    for path, is_eager, solver in (stationary, eager, eager, stationary):
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+        reads = solver.HOST_READS
+        t0 = time.perf_counter()
+        res = pcx.solve(b, eager=is_eager, **kw)
+        device_sync_read(res.x)
+        seconds.setdefault(path, []).append(time.perf_counter() - t0)
+        out[path] = (res, " / ".join(f"{t:.4f}" for t in seconds[path]),
+                     solver.HOST_READS - reads,
+                     {"dia": tdia.KERNEL_LAUNCHES,
+                      "banded": tbanded.KERNEL_LAUNCHES})
+    return out
 
 
 def band_matrix(np, sp, n, w, seed):
@@ -468,19 +519,27 @@ def main() -> int:
     pc64.setup(A512)
     t_setup64 = time.perf_counter() - t0
     pc64.upload()
-    t0 = time.perf_counter()
-    res = pc64.solve(np.zeros(n), x0=np.ones(n), rtol=1e-10, atol=1e-50,
-                     max_it=6, side="right")
-    x64 = res.x.cpu().numpy()
-    t_solve64 = time.perf_counter() - t0
-    true64 = float(np.linalg.norm(A512 @ x64)
-                   / np.linalg.norm(A512 @ np.ones(n)))
-    print(f"# 512^2 f64 parity: {pc64.n_levels} levels, setup "
-          f"{t_setup64:.3f} s, right GMRES {res.iterations} its "
-          f"(converged {res.converged}), solve {t_solve64:.4f} s, "
-          f"||Ax||/||A1|| {true64:.3e}")
-    require(res.converged and res.iterations <= 6 and true64 <= 1e-8,
-            "f64 parity configuration did not converge in 6 iterations")
+    paths64 = gmres_paths(pc64, np.zeros(n), x0=np.ones(n), rtol=1e-10,
+                          atol=1e-50, max_it=6, side="right")
+    for path, (res, t_solve64, reads, _) in paths64.items():
+        x64 = res.x.cpu().numpy()
+        true64 = float(np.linalg.norm(A512 @ x64)
+                       / np.linalg.norm(A512 @ np.ones(n)))
+        print(f"# 512^2 f64 parity, {path} GMRES: {pc64.n_levels} levels, "
+              f"setup {t_setup64:.3f} s, right GMRES {res.iterations} its "
+              f"(converged {res.converged}), solve {t_solve64} s to "
+              f"completion, host reads {reads} ({reads / res.iterations:.2f}"
+              f" an iteration), ||Ax||/||A1|| {true64:.3e}, history "
+              + np.array2string(res.history, precision=6,
+                                max_line_width=10**4))
+        require(res.converged and res.iterations <= 6 and true64 <= 1e-8,
+                f"f64 parity configuration, {path} GMRES: did not converge "
+                "in 6 iterations")
+    h, h_eager = (paths64[p][0].history for p in ("stationary", "eager"))
+    require(len(h) == len(h_eager) and np.all(
+        np.abs(h - h_eager) <= HISTORY_RTOL * h_eager
+        + HISTORY_FLOOR * h_eager[0]), "f64 parity configuration: the "
+        "stationary and eager GMRES histories differ")
 
     # ~~~~~~~~~~ 7. the main path at 2048^2 ~~~~~~~~~~
     # Two more levels per doubling of the grid side keep the coarsest grid
@@ -524,6 +583,28 @@ def main() -> int:
             "2048^2 Richardson did not converge")
     require(launches2k["dia"] > 0 and launches2k["banded"] > 0,
             f"a kernel of the 2048^2 path was not launched: {launches2k}")
+
+    # right GMRES to rtol 1e-5 by both GMRES paths
+    paths2k = gmres_paths(pc2k, b2k, rtol=1e-5, side="right")
+    for path, (res, t_gmres, reads, counts2k) in paths2k.items():
+        true = float(np.linalg.norm(A2k @ res.x.double().cpu().numpy() - b2k)
+                     / np.linalg.norm(b2k))
+        print(f"# 2048^2 f32 right GMRES, {path}: {res.iterations} its "
+              f"(converged {res.converged}), {t_gmres} s to completion, "
+              f"host reads {reads} ({reads / res.iterations:.2f} an "
+              f"iteration), true residual {true:.3e}, launches {counts2k}, "
+              f"per iteration dia {counts2k['dia'] / res.iterations:.2f} "
+              f"banded {counts2k['banded'] / res.iterations:.2f}")
+        require(res.converged and true <= 1e-4, f"2048^2 {path} GMRES: "
+                f"true residual {true:.3e}")
+        require(counts2k["dia"] > 0 and counts2k["banded"] > 0,
+                f"2048^2 {path} GMRES: a kernel was not launched")
+    gmres_runs = {f"2048 gmres {path}": {"launches": c, "iterations":
+                                         r.iterations}
+                  for path, (r, _, _, c) in paths2k.items()}
+    require(len({r.iterations for r, *_ in paths2k.values()}) == 1,
+            "2048^2: the stationary and eager GMRES iterations differ")
+    del paths2k
 
     # profiled last: a profiler session can slow the launches after it
     us_512 = profile_solve(pc, b, "512^2")
@@ -571,6 +652,11 @@ def main() -> int:
         profile_solve, setup_breakdown, launches2k["dia"] / 10)
     print(f"# phase 10: {t_phase10:.3f} s")
 
+    # ~~~~~~~~~~ 11. same-pattern re-setup ~~~~~~~~~~
+    reuse_runs, t_phase11 = phase11(np, sp, torch, tpf, tdia, tbanded, dev,
+                                    A512, A2k, setup_breakdown)
+    print(f"# phase 11: {t_phase11:.3f} s")
+
     kernels = []
     for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
                               ("padded", "dia", DIA_SITES["padded"]),
@@ -601,6 +687,14 @@ def main() -> int:
                         "launches_per_iteration":
                             run["launches"][kind] / max(run["iterations"], 1)}
                 for label, run in options_runs.items()},
+            **{key: {label: {"launches": run["launches"][kind],
+                             "iterations": run["iterations"],
+                             "launches_per_iteration":
+                                 run["launches"][kind]
+                                 / max(run["iterations"], 1)}
+                     for label, run in runs.items()}
+               for key, runs in (("gmres_2048", gmres_runs),
+                                 ("reuse", reuse_runs))},
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1034,6 +1128,249 @@ def phase10(np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure,
     print(f"# phase 10 (b), with the end of (a)'s CPU twins: "
           f"{time.perf_counter() - t_phase - t_a:.3f} s")
     return runs, time.perf_counter() - t_phase
+
+
+# (label, options) of phase 11 (a), each on the bench's options and depth
+# with reuse_sparsity
+PHASE11_SETS = tuple(
+    (f"amount {a}" + (" reuse_poly_coeffs" if p else ""),
+     dict(reuse_amount=a, reuse_poly_coeffs=p))
+    for a in (1, 2, 3) for p in (False, True))
+
+
+def perturbed(np, A, seed):
+    """A's pattern, its values times 1 + 0.01 N(0, 1)."""
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 0.01 * np.random.default_rng(seed)
+                         .standard_normal(A.nnz))
+    return A2
+
+
+def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
+            setup_breakdown):
+    """Same-pattern re-setup on the host (see the module docstring, phase
+    11).  Returns the runs ({label: {"launches", "iterations"}}) and the
+    phase's seconds."""
+    from pflare_tpu_torch.utils.timers import (device_sync_read, get_timers,
+                                               reset_timers)
+
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+
+    def zero_counts():
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+
+    def resetup_split():
+        return ", ".join(f"{k} {v:.4f} s" for k, v in get_timers().items()
+                         if k.startswith("resetup_")) or "no resetup_ timers"
+
+    def max_operator_diff(h1, h2):
+        diff = 0.0
+        for l1, l2 in zip(h1.levels, h2.levels):
+            for name in ("A_ff", "A_fc", "R", "P", "inv_Aff_host"):
+                diff = max(diff, float(abs(getattr(l1, name)
+                                           - getattr(l2, name)).max()))
+        return max(diff, float(abs(h1.coarse_matrix
+                                   - h2.coarse_matrix).max()))
+
+    runs = {}
+    # (a) 512^2, f64, the bench's options and depth
+    A2 = perturbed(np, A512, 5)
+    b = np.random.default_rng(0).standard_normal(A512.shape[0])
+    kw = dict(side="right", rtol=1e-10, atol=1e-50, max_it=60)
+    pending = []
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, n_threads - 2))
+    pool = ThreadPoolExecutor(max_workers=1)
+
+    def setup_pair(opts):
+        """(PCAIR set up on A512 then re-set up on A2, first-setup s,
+        re-setup s)."""
+        pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev)
+        t0 = time.perf_counter()
+        pc.setup(A512)
+        t_first = time.perf_counter() - t0
+        reset_timers()
+        t0 = time.perf_counter()
+        pc.setup(A2, "same")
+        return pc, t_first, time.perf_counter() - t0
+
+    def card_and_twin(label, pc, line):
+        """Upload, solve on the card, queue the CPU twin's solve."""
+        pc_cpu = pc.on("cpu")
+        t0 = time.perf_counter()
+        pc.upload()
+        torch.cuda.synchronize()
+        t_upload = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        res = pc.solve(b, **kw)
+        device_sync_read(res.x)
+        t_card = time.perf_counter() - t0
+        launches = counts()
+        pending.append((label, f"{line}, upload {t_upload:.3f} s, right "
+                        f"GMRES {res.iterations} its, relative residual "
+                        f"{res.history[-1] / res.history[0]:.6e}, card "
+                        f"{t_card:.4f} s", res, launches, pool.submit(
+                            _timed_solve, pc_cpu, b, kw)))
+        runs[f"512 {label}"] = {"launches": launches,
+                                "iterations": res.iterations}
+        return res
+
+    base = tpf.AIROptions().replace(**(BENCH_DEPTH | _bench_kw()),
+                                    reuse_sparsity=True)
+    try:
+        for label, opts_kw in PHASE11_SETS:
+            pc, t_first, t_re = setup_pair(base.replace(**opts_kw))
+            fast = sum("host_fast" in lv.patterns
+                       for lv in pc.hierarchy.levels)
+            require(fast == (0 if opts_kw["reuse_amount"] < 2
+                             else len(pc.hierarchy.levels)),
+                    f"512^2 {label}: {fast} levels re-set up by plans")
+            card_and_twin(label, pc, f"# 512^2 f64 reuse {label}: first "
+                          f"setup {t_first:.3f} s, re-setup {t_re:.3f} s "
+                          f"({resetup_split()}), {fast} of "
+                          f"{len(pc.hierarchy.levels)} levels by plans")
+            if label == "amount 2 reuse_poly_coeffs":
+                pc_fast = pc
+            else:
+                del pc
+
+        # the generic reuse path, with the plans popped (tests/test_air.py:
+        # 381-384), against the plan re-setup
+        gen = tpf.PCAIR(pc_fast.options, dtype=torch.float64, device=dev)
+        gen.setup(A512)
+        for lv in gen.hierarchy.levels:
+            lv.patterns.pop("host_fast", None)
+        reset_timers()
+        t0 = time.perf_counter()
+        gen.setup(A2, "same")
+        t_re = time.perf_counter() - t0
+        diff = max_operator_diff(pc_fast.hierarchy, gen.hierarchy)
+        card_and_twin("generic", gen, f"# 512^2 f64 reuse generic (plans "
+                      f"popped): re-setup {t_re:.3f} s, operators within "
+                      f"{diff:.3e} of the plan re-setup's")
+        require(diff <= 1e-11, f"512^2: plan and generic re-setups differ "
+                f"by {diff:.3e}")
+        del gen, pc_fast
+
+        # set_poly_coefficients: a fresh PCAIR given every level's
+        # coefficients reproduces the history
+        opts = base.replace(reuse_amount=2)
+        pc1 = tpf.PCAIR(opts, dtype=torch.float64, device=dev).setup(A512)
+        res1 = pc1.solve(b, **kw)
+        pc2 = tpf.PCAIR(opts, dtype=torch.float64, device=dev)
+        for lvl in list(range(pc1.n_levels - 1)) + [-1]:
+            c = pc1.get_poly_coefficients(lvl)
+            if c is not None:
+                pc2.set_poly_coefficients(lvl, c)
+        pc2.setup(A512)
+        res2 = pc2.solve(b, **kw)
+        rel = float(np.max(np.abs(res2.history - res1.history)
+                           / res1.history))
+        print(f"# 512^2 f64 set_poly_coefficients: {res2.iterations} its "
+              f"against {res1.iterations}, histories within {rel:.3e}")
+        require(res2.iterations == res1.iterations and rel <= 1e-12,
+                "512^2 set_poly_coefficients did not reproduce the history")
+        del pc1
+        t0 = time.perf_counter()
+        pc2.setup(A2, "same")
+        card_and_twin("set_poly_coefficients", pc2, "# 512^2 f64 reuse "
+                      "set_poly_coefficients: re-setup "
+                      f"{time.perf_counter() - t0:.3f} s with the injected "
+                      "coefficients")
+        del pc2
+
+        # freeze: the re-setup keeps the hierarchy
+        pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev).setup(A512)
+        h = pc.hierarchy
+        pc.freeze(True)
+        pc.setup(A2, "same")
+        require(pc.hierarchy is h, "512^2 freeze: the hierarchy changed")
+        card_and_twin("freeze", pc, "# 512^2 f64 reuse freeze: hierarchy "
+                      "kept")
+        del pc, h
+
+        # (b) 2048^2, f32 solve of a hierarchy set up from the f64 matrix
+        # (the plan re-setup computes in f64, as the reference's does)
+        opts = bench_options(tpf, max_levels=10).replace(
+            reuse_sparsity=True, reuse_amount=2)
+        pc = tpf.PCAIR(opts, dtype=torch.float32, device=dev)
+        reset_timers()
+        t0 = time.perf_counter()
+        pc.setup(A2k)
+        t_first = time.perf_counter() - t0
+        first_split = setup_breakdown()
+        A2k2 = perturbed(np, A2k, 6)
+        reset_timers()
+        t0 = time.perf_counter()
+        pc.setup(A2k2, "same")
+        t_re = time.perf_counter() - t0
+        fast = sum("host_fast" in lv.patterns for lv in pc.hierarchy.levels)
+        t0 = time.perf_counter()
+        dh = pc.upload()
+        torch.cuda.synchronize()
+        t_upload = time.perf_counter() - t0
+        require(dh.top.dtype == torch.float32 and all(
+            lev[k].dtype == torch.float32 for lev in dh.levels
+            for k in ("A_ff", "A_fc", "R", "P")), "2048^2 reuse: the "
+            "upload is not float32")
+        b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
+        zero_counts()
+        t0 = time.perf_counter()
+        x, norms = pc.solve_device(b2k, max_it=10, ksp="richardson")
+        device_sync_read(x, norms)
+        t_solve = time.perf_counter() - t0
+        launches = counts()
+        norms = norms.cpu().numpy()
+        its = _converged_at(np, norms, 1e-5)
+        true = float(np.linalg.norm(A2k2 @ x.double().cpu().numpy() - b2k)
+                     / np.linalg.norm(b2k))
+        print(f"# 2048^2 reuse amount 2 (f64 setup, f32 solve): first "
+              f"setup {t_first:.3f} s ({first_split}), re-setup {t_re:.3f} "
+              f"s ({resetup_split()}), {t_first / t_re:.2f}x, {fast} of "
+              f"{len(pc.hierarchy.levels)} levels by plans; upload "
+              f"{t_upload:.3f} s; solve_device 10 Richardson its "
+              f"{t_solve:.4f} s, rtol 1e-5 at iteration {its}, true "
+              f"residual {true:.3e}, launches {launches}")
+        require(fast == len(pc.hierarchy.levels), "2048^2: a level was not "
+                "re-set up by its plans")
+        require(its is not None and true <= 1e-4 and np.isfinite(norms).all(),
+                f"2048^2 reuse: did not converge ({true:.3e})")
+        require(launches["dia"] > 0 and launches["banded"] > 0,
+                f"2048^2 reuse: a kernel was not launched: {launches}")
+        runs["2048 reuse amount 2"] = {"launches": launches,
+                                       "iterations": 10}
+        del pc, dh, x, A2k2
+
+        for label, line, res, launches, twin in pending:
+            h_cpu, t_cpu = twin.result()
+            h = res.history
+            require(len(h) == len(h_cpu), f"512^2 reuse {label}: {len(h)} "
+                    f"card norms against {len(h_cpu)} on the CPU")
+            diff = np.abs(h - h_cpu)
+            print(f"{line}, CPU {t_cpu:.4f} s, history max relative "
+                  f"difference {float(np.max(diff / h_cpu)):.3e}, launches "
+                  f"{launches}")
+            require(np.all(diff <= HISTORY_RTOL * h_cpu
+                           + HISTORY_FLOOR * h_cpu[0]),
+                    f"512^2 reuse {label}: card and CPU histories differ")
+            require(launches["dia"] > 0, f"512^2 reuse {label}: the DIA "
+                    f"kernel was not launched: {launches}")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        torch.set_num_threads(n_threads)
+    return runs, time.perf_counter() - t_phase
+
+
+def _timed_solve(pcx, b, kw):
+    """A CPU twin's solve: (history, seconds)."""
+    t0 = time.perf_counter()
+    h = pcx.solve(b, **kw).history
+    return h, time.perf_counter() - t0
 
 
 def _converged_at(np, norms, rtol):

@@ -105,11 +105,13 @@ def lair_sparsity(A_ff_drop, A_cf_drop, distance: int) -> sp.csr_matrix:
 
 
 def compute_z_lair(A_ff, A_cf, A_ff_drop, A_cf_drop, distance: int,
-                   incomplete: bool):
+                   incomplete: bool, sparsity=None):
     """lAIR (``incomplete``) or SAI-lAIR: per-row dense solves against the
     un-dropped blocks on the distance-d sparsity of the dropped ones
-    (reference: src/AIR_Operators_Setup.F90:700-782)."""
-    sparsity = lair_sparsity(A_ff_drop, A_cf_drop, distance)
+    (reference: src/AIR_Operators_Setup.F90:700-782).  A re-setup passes
+    the stored ``sparsity`` and skips the symbolic products."""
+    if sparsity is None:
+        sparsity = lair_sparsity(A_ff_drop, A_cf_drop, distance)
     return sai_z(A_ff, A_cf, sparsity, incomplete=incomplete)
 
 
@@ -166,24 +168,28 @@ def assemble_r(Z: sp.csr_matrix, fine, coarse, n: int) -> sp.csr_matrix:
 
 
 def compute_coarse_matrix(A, R, P, a_drop: float, a_lump: bool,
-                          symmetric: bool = False):
+                          symmetric: bool = False, need_rap: bool = True):
     """drop(R @ (A @ P)) with a relative row tolerance and optional
     lumping (reference: src/AIR_Operators_Setup.F90:960-1082).  Symmetric
-    PtAP is P^T (A P) with P = R^T: the same two products.  Otherwise the
-    second product and the drop fuse in one native sweep when it can;
-    tol 0 still drops explicit zeros."""
+    PtAP is P^T (A P) with P = R^T: the same two products.  Otherwise,
+    when the caller needs no undropped RAP, the second product and the
+    drop fuse in one native sweep when it can (RAP is then None); tol 0
+    still drops explicit zeros.  Returns (coarse, RAP, AP)."""
     AP = ap_product(A, P)
     if symmetric:
         RAP = _matmat(sp.csr_matrix(P.T).tocsr(), AP)
     else:
-        from ..native import spgemm_drop_native
+        if not need_rap:
+            from ..native import spgemm_drop_native
 
-        fused = spgemm_drop_native(R, AP, a_drop, relative=1, lump=a_lump)
-        if fused is not None:
-            return fused
+            fused = spgemm_drop_native(R, AP, a_drop, relative=1,
+                                       lump=a_lump)
+            if fused is not None:
+                return fused, None, AP
         RAP = _matmat(R, AP)
-    return remove_small_from_sparse(RAP, a_drop, relative_max_row_tol=1,
-                                    lump=a_lump)
+    coarse = remove_small_from_sparse(RAP, a_drop, relative_max_row_tol=1,
+                                      lump=a_lump)
+    return coarse, RAP, AP
 
 
 def _rows_of(M: sp.csr_matrix):

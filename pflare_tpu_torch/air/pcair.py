@@ -3,24 +3,30 @@
 The user-facing counterpart of the reference's PCAIR PETSc type
 (reference: src/PCAIR.c, src/PCAIR_Shell.F90) and of
 ``pflare_tpu.air.pcair.PCAIR``: ``setup`` builds the hierarchy on the
-host, ``upload`` builds its device form, ``apply`` runs the V-cycle,
-``solve`` runs GMRES, FGMRES or Richardson with it and ``solve_device``
-a fixed number of Richardson or right-GMRES iterations with no host round
-trip.  Under ``reorder="rcm"``/``"auto"`` the setup and solve run in the
+host (or, with ``structure="same"`` and ``reuse_sparsity``, rebuilds it
+numerically on the stored patterns), ``upload`` builds its device form,
+``apply`` runs the V-cycle, ``solve`` runs GMRES, FGMRES or Richardson
+with it and ``solve_device`` a fixed number of Richardson or right-GMRES
+iterations with no host round trip.  Changing options resets the
+preconditioner (reference: src/PCAIR_Interfaces.F90:1821-1882).  Under
+``reorder="rcm"``/``"auto"`` the setup and solve run in the
 bandwidth-reducing order and every vector comes back in the caller's.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from ..options import AIROptions
-from ..solvers.jitted import gmres_right_fixed, richardson_fixed
-from ..solvers.krylov import fgmres, gmres, richardson
+from ..solvers.jitted import (gmres_right_fixed, gmres_stationary,
+                              richardson_fixed)
+from ..solvers.krylov import SolveResult, fgmres, gmres, richardson
 from ..utils.timers import print_timers, timer
-from .hierarchy import DeviceHierarchy, Hierarchy, check_options, setup_hierarchy
+from .hierarchy import DeviceHierarchy, Hierarchy, setup_hierarchy
 from .smooth import vcycle_full, vcycle_kaskade
 from .stats import compute_stats, print_stats
 
@@ -44,28 +50,62 @@ class PCAIR:
         opts = options or AIROptions()
         if kw:
             opts = opts.replace(**kw)
-        check_options(opts)
-        if opts.reorder not in ("none", "rcm", "auto"):
-            raise ValueError(f"unknown reorder {opts.reorder!r}")
-        self.options = opts
+        self.options = _checked(opts)
         self.dtype = dtype
         self.device = torch.device(device)
         self.hierarchy: Hierarchy | None = None
         self._device_hierarchy: DeviceHierarchy | None = None
         self._perm = None       # device index tensors of the reordering
         self._iperm = None
+        self._frozen = False    # KSPSetReusePreconditioner analogue
+        self._injected_coeffs = None  # set_poly_coefficients payloads
 
-    def setup(self, A, near_nullspace=None):
+    def set_options(self, **kw):
+        """Change options; the preconditioner resets."""
+        self.options = _checked(self.options.replace(**kw))
+        self.reset()
+
+    def reset(self):
+        """Drop the hierarchy, its device form and injected coefficients."""
+        self.hierarchy = None
+        self._device_hierarchy = None
+        self._injected_coeffs = None
+
+    def freeze(self, flag: bool = True):
+        """While frozen, ``setup`` keeps the hierarchy it has
+        (KSPSetReusePreconditioner semantics, reference:
+        src/PCAIR.c:150-166)."""
+        self._frozen = flag
+
+    def setup(self, A, structure: str = "different", near_nullspace=None):
         """Build the hierarchy of the scipy matrix ``A`` on the host.
-        ``near_nullspace``: candidate vectors for the constraints, in the
-        caller's order."""
+        ``structure="same"`` declares A's nonzero pattern that of the last
+        setup: with ``reuse_sparsity`` the stored CF splitting and (from
+        ``reuse_amount`` 2) the stored patterns are reused and only values
+        are computed; otherwise it is a full setup (reference:
+        src/PCAIR_Shell.F90:107-165).  ``near_nullspace``: candidate
+        vectors for the constraints, in the caller's order.  A re-setup
+        drops the uploaded device form: the next ``upload`` copies the new
+        values, and a twin made by ``on`` before it keeps the old
+        hierarchy."""
+        if structure not in ("same", "different"):
+            raise ValueError("structure must be 'same' or 'different', not "
+                             f"{structure!r}")
+        if self._frozen and self.hierarchy is not None:
+            return self
         A = self._apply_reorder(sp.csr_matrix(A))
         if near_nullspace is not None and self._perm is not None:
             perm = self._perm.cpu().numpy()
             near_nullspace = [np.asarray(v)[perm] for v in near_nullspace]
+        previous = None
+        if (structure == "same" and self.hierarchy is not None
+                and self.options.reuse_sparsity):
+            previous = self.hierarchy
         with timer("air_setup"):
-            self.hierarchy = setup_hierarchy(A, self.options,
-                                             near_nullspace=near_nullspace)
+            self.hierarchy = setup_hierarchy(
+                A, self.options, previous=previous,
+                near_nullspace=near_nullspace,
+                injected_coeffs=self._injected_coeffs)
         self._device_hierarchy = None
         if self.options.print_stats_timings:
             print_stats(self.hierarchy)
@@ -160,18 +200,29 @@ class PCAIR:
         return self.apply(r)
 
     def solve(self, b, x0=None, ksp="gmres", rtol=1e-5, atol=1e-50,
-              max_it=10000, side="left", restart=30):
-        """Krylov solve with this preconditioner (solvers/krylov.py):
-        ``ksp`` is "gmres" (``side`` left or right), "fgmres" or
-        "richardson".  Returns a SolveResult whose ``x`` is a device
-        tensor in the caller's order."""
+              max_it=10000, side="left", restart=30, eager=None):
+        """Krylov solve with this preconditioner: ``ksp`` is "gmres"
+        (``side`` left or right), "fgmres" or "richardson".  GMRES runs
+        ``gmres_stationary`` (solvers/jitted.py, one host read an
+        iteration); ``eager=True``, or PFLARE_EAGER_KSP=1, runs the
+        host-driven ``gmres`` of solvers/krylov.py instead (one host read
+        a Gram-Schmidt dot; the reference's debug path).  Returns a
+        SolveResult whose ``x`` is a device tensor in the caller's
+        order."""
+        if eager is None:
+            eager = os.environ.get("PFLARE_EAGER_KSP") == "1"
         dh = self.upload()
         b = self._to_internal(self._vector(b))
         x0 = None if x0 is None else self._to_internal(self._vector(x0))
         M = self._precond(dh)
-        if ksp == "gmres":
+        if ksp == "gmres" and eager:
             res = gmres(dh.top, b, x0=x0, M=M, side=side, rtol=rtol,
                         atol=atol, max_it=max_it, restart=restart)
+        elif ksp == "gmres":
+            x, its, hist, done = gmres_stationary(
+                dh.top.matvec, M, b, x0, rtol, atol, int(max_it),
+                max(1, min(int(restart), int(max_it))), side)
+            res = SolveResult(x, its, done, list(hist[: its + 1]))
         elif ksp == "fgmres":
             res = fgmres(dh.top, b, x0=x0, M=M, rtol=rtol, atol=atol,
                          max_it=max_it, restart=restart)
@@ -250,3 +301,40 @@ class PCAIR:
         for ln in lines:
             out(ln)
         return "\n".join(lines)
+
+    def get_poly_coefficients(self, level: int):
+        """The polynomial coefficients of a level's inverse, or of the
+        coarse solver for ``level`` -1 or the coarsest index (None for an
+        inverse without them; Newton gives the ``[2, k]`` real and
+        imaginary roots).  Reference: PCAIRGetPolyCoeffs,
+        include/pflare.h:191."""
+        if level == -1 or level == self.n_levels - 1:
+            inv = self.hierarchy.coarse_inv
+        else:
+            inv = self.hierarchy.levels[level].inv_Aff
+        return (None if inv.coefficients is None
+                else np.asarray(inv.coefficients))
+
+    def set_poly_coefficients(self, level: int, coeffs):
+        """Inject a level's polynomial coefficients (-1: the coarse
+        solver) for the next setup, which then skips that level's
+        coefficient iteration: with every level injected it reproduces
+        the preconditioner they were taken from (reference:
+        PCAIRSetPolyCoeffs, include/pflare.h:244; docs/reuse.md:216-390).
+        Before the first setup the coarsest index is unknown, so use -1;
+        after it the coarsest index maps to -1.  Layouts as
+        ``get_poly_coefficients`` returns them."""
+        level = int(level)
+        if (level >= 0 and self.hierarchy is not None
+                and level == self.n_levels - 1):
+            level = -1
+        if self._injected_coeffs is None:
+            self._injected_coeffs = {}
+        self._injected_coeffs[level] = np.asarray(coeffs)
+        return self
+
+
+def _checked(opts: AIROptions) -> AIROptions:
+    if opts.reorder not in ("none", "rcm", "auto"):
+        raise ValueError(f"unknown reorder {opts.reorder!r}")
+    return opts

@@ -70,6 +70,9 @@ def compute_stats(hierarchy) -> dict:
     ci = hierarchy.coarse_inv
     cycle_nnz += _inv_nnz(ci, cm)
     storage_nnz += _inv_storage(ci) + cm.nnz
+    reuse_nnz = sum(lvl.patterns[key].nnz for lvl in levels
+                    for key in ("W_drop", "Z_drop", "RAP_drop")
+                    if key in lvl.patterns)
 
     return {
         "levels": len(levels) + 1,
@@ -79,8 +82,8 @@ def compute_stats(hierarchy) -> dict:
         "operator_complexity": sum(nnz_A) / nnz_fine,
         "cycle_complexity": cycle_nnz / nnz_fine,
         "storage_complexity": storage_nnz / nnz_fine,
-        # sparsity reuse is not ported: no stored patterns
-        "reuse_storage_complexity": 0.0,
+        "reuse_storage_complexity": (reuse_nnz / nnz_fine
+                                     if opts.reuse_sparsity else 0.0),
     }
 
 

@@ -143,12 +143,15 @@ def _clamp_orders(n_global, poly_order, sparsity_order):
 def build_inverse(A_scipy: sp.csr_matrix, inverse_type: InverseType,
                   poly_order: int = 6, sparsity_order: int = 1,
                   matrix_free: bool = False, diag_scale: bool = False,
-                  coefficients=None, seed: int = 17) -> Inverse:
+                  coefficients=None, seed: int = 17,
+                  poly_plan=None) -> Inverse:
     """Compute a host approximate inverse of ``A_scipy``.  The precision
     follows the matrix: an f32 matrix gives an f32 Krylov basis and f32
     tolerances.  ``coefficients`` skips the polynomial iteration (the
     reference's coefficient reuse protocol, src/Approx_Inverse_Setup.F90:
-    52-64)."""
+    52-64).  ``poly_plan``, a ``FixedSparsityPolyPlan`` stored by a
+    reuse-enabled setup, evaluates an assembled power or Arnoldi
+    polynomial on its stored plan when it still fits the matrix."""
     inverse_type = InverseType(inverse_type)
     A = A_scipy
     n = A.shape[0]
@@ -239,7 +242,8 @@ def build_inverse(A_scipy: sp.csr_matrix, inverse_type: InverseType,
     if matrix_free:
         return Inverse("poly_mf", coefficients=trim_high_order_zeros(coeffs),
                        diag=d_np, scaled=diag_scale, mat_src=A)
-    return _assemble_poly(A, coeffs, sparsity_order, diag_scale, d_np)
+    return _assemble_poly(A, coeffs, sparsity_order, diag_scale, d_np,
+                          poly_plan)
 
 
 def trim_high_order_zeros(coeffs: np.ndarray) -> np.ndarray:
@@ -258,9 +262,11 @@ def _diag_scaled(A, d_np):
     return A_use
 
 
-def _assemble_poly(A, coeffs, sparsity_order, diag_scale, d_np):
+def _assemble_poly(A, coeffs, sparsity_order, diag_scale, d_np,
+                   poly_plan=None):
     """Assembled polynomial inverse (fixed sparsity, reference:
-    src/Gmres_Poly.F90:1522-1813)."""
+    src/Gmres_Poly.F90:1522-1813); numeric-only on ``poly_plan`` when it
+    has A's nonzero count and the polynomial's order."""
     n = A.shape[0]
     poly_order = len(coeffs) - 1
     if poly_order == 0:
@@ -269,7 +275,11 @@ def _assemble_poly(A, coeffs, sparsity_order, diag_scale, d_np):
             inv_diag = inv_diag / d_np
         return Inverse("diagonal", diag=inv_diag, coefficients=coeffs)
     A_use = _diag_scaled(A, d_np) if diag_scale else A
-    M_host = _fixed_sparsity_poly_host(A_use, coeffs, sparsity_order)
+    if (poly_plan is not None and poly_plan.pat_A.nnz == A_use.nnz
+            and poly_plan.order == poly_order):
+        M_host = poly_plan.execute_host(A_use, coeffs)
+    else:
+        M_host = _fixed_sparsity_poly_host(A_use, coeffs, sparsity_order)
     if diag_scale:
         M_host = sp.csr_matrix(M_host @ sp.diags(1.0 / d_np))
     return Inverse("assembled", host_csr=M_host, coefficients=coeffs)

@@ -46,6 +46,14 @@ _SIGNATURES = (
     ("newton_on_sparsity", None, "pppppnnppndp", _ALL),
     ("one_point_strongest", ctypes.c_int64, "pppnp", _ALL),
     ("aggregation", ctypes.c_int64, "ppnpp", ("",)),
+    ("plan_count", ctypes.c_int64, "pppn", ("", "_i32")),
+    ("plan_fill", ctypes.c_int64, "ppppppnnppp", ("", "_i32")),
+    ("plan_fill_lump", ctypes.c_int64, "ppppppnnppp", ("", "_i32")),
+    ("plan_fill32", ctypes.c_int64, "ppppppnnppp", ("", "_i32")),
+    ("plan_fill_lump32", ctypes.c_int64, "ppppppnnppp", ("", "_i32")),
+    ("plan_execute", None, "pppppndpn", ("", "_i32")),
+    ("gather_fill", None, "ppndp", ("", "_i32")),
+    ("spgemm_onto_pattern", None, "ppppppppnnip", _ALL),
 )
 _CTYPES = {"p": ctypes.c_void_p, "n": ctypes.c_int64, "d": ctypes.c_double,
            "i": ctypes.c_int}
@@ -118,6 +126,11 @@ def _dispatch(index_arrays, value_arrays=()):
 
 def _c(a, dtype):
     return np.ascontiguousarray(a, dtype=dtype)
+
+
+def _opt(a):
+    """A pointer, or NULL for None."""
+    return None if a is None else _p(a)
 
 
 def pmisr_luby_native(indptr, indices, measure, cf, assigned, max_steps):
@@ -369,3 +382,111 @@ def aggregation_native(indptr, indices, cf, aggregates):
     indptr, indices = _c(indptr, np.int64), _c(indices, np.int64)
     return lib.aggregation(_p(indptr), _p(indices), len(indptr) - 1, _p(cf),
                            _p(aggregates))
+
+
+def _plan_triples(fill, out_dtype, a_indptr, a_indices, b_indptr, b_indices,
+                  c_indptr, c_indices, n_cols):
+    """The product triples (a_pos, b_pos, c_pos) of C = A@B on C's
+    pattern, row by row (the ``fill`` kernel decides what happens to the
+    products outside it).  int32 positions unless they would wrap."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    idt, _, suffix = _dispatch((a_indptr, a_indices, b_indptr, b_indices,
+                                c_indptr, c_indices))
+    arrs = [_c(a, idt) for a in (a_indptr, a_indices, b_indptr, b_indices,
+                                 c_indptr, c_indices)]
+    n_rows = len(arrs[0]) - 1
+    total = getattr(lib, "plan_count" + suffix)(
+        _p(arrs[0]), _p(arrs[1]), _p(arrs[2]), n_rows)
+    if out_dtype == np.int32 and total >= 2**31:
+        fill, out_dtype = fill.replace("32", ""), np.int64
+    pos = [np.empty(total, dtype=out_dtype) for _ in range(3)]
+    kept = getattr(lib, fill + suffix)(*map(_p, arrs), n_rows, int(n_cols),
+                                       *map(_p, pos))
+    return tuple(p_[:kept] for p_ in pos)
+
+
+def plan_triples_native(a_indptr, a_indices, b_indptr, b_indices, c_indptr,
+                        c_indices, n_cols):
+    """(a_pos, b_pos, c_pos) int64 of the products of C = A@B that land
+    in C's pattern, or None.  ``n_cols`` is the column count of B and C."""
+    return _plan_triples("plan_fill", np.int64, a_indptr, a_indices,
+                         b_indptr, b_indices, c_indptr, c_indices, n_cols)
+
+
+def plan_triples_lump_native(a_indptr, a_indices, b_indptr, b_indices,
+                             c_indptr, c_indices, n_cols):
+    """Like ``plan_triples_native``, but a product outside C's pattern is
+    redirected to the diagonal of its row (the fused drop and lump of the
+    RAP re-product); rows without a diagonal drop it.  Or None."""
+    return _plan_triples("plan_fill_lump", np.int64, a_indptr, a_indices,
+                         b_indptr, b_indices, c_indptr, c_indices, n_cols)
+
+
+def plan_triples32_native(a_indptr, a_indices, b_indptr, b_indices,
+                          c_indptr, c_indices, n_cols, lump=False):
+    """``plan_triples_native`` (``plan_triples_lump_native`` with
+    ``lump``) with int32 positions, half the triple memory; int64 when a
+    count would wrap.  Or None."""
+    return _plan_triples("plan_fill_lump32" if lump else "plan_fill32",
+                         np.int32, a_indptr, a_indices, b_indptr, b_indices,
+                         c_indptr, c_indices, n_cols)
+
+
+def plan_execute_native(a_data, b_data, a_pos, b_pos, c_pos, nnz_out,
+                        alpha=1.0):
+    """out[c_pos[k]] += alpha * a[a_pos[k]] * b[b_pos[k]] over k ascending
+    (b None: a unit second operand), in float64: the accumulation order of
+    a numpy bincount over the same triples.  Returns out, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pos = (a_pos, c_pos) + (() if b_pos is None else (b_pos,))
+    idt, _, suffix = _dispatch(pos)
+    a, a_pos, c_pos = _c(a_data, np.float64), _c(a_pos, idt), _c(c_pos, idt)
+    b = None if b_data is None else _c(b_data, np.float64)
+    b_pos = None if b_pos is None else _c(b_pos, idt)
+    out = np.empty(int(nnz_out), dtype=np.float64)
+    getattr(lib, "plan_execute" + suffix)(
+        _p(a), _opt(b), _p(a_pos), _opt(b_pos), _p(c_pos), len(a_pos),
+        float(alpha), _p(out), int(nnz_out))
+    return out
+
+
+def gather_fill_native(src, idx, fill):
+    """out[k] = src[idx[k]] where idx[k] >= 0, else ``fill``, in float64.
+    Returns out, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    idt, _, suffix = _dispatch((idx,))
+    src, idx = _c(src, np.float64), _c(idx, idt)
+    out = np.empty(len(idx), dtype=np.float64)
+    getattr(lib, "gather_fill" + suffix)(_p(src), _p(idx), len(idx),
+                                         float(fill), _p(out))
+    return out
+
+
+def spgemm_onto_pattern_native(A, B, P, lump: bool):
+    """(A @ B) restricted onto P's pattern, the product outside it lumped
+    onto P's diagonal with ``lump``, without forming the whole product
+    (the numeric-only re-setup product).  Returns a csr with P's pattern,
+    or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    idt, vdt, suffix = _dispatch(
+        (A.indptr, A.indices, B.indptr, B.indices, P.indptr, P.indices),
+        (A.data, B.data))
+    a = [_c(A.indptr, idt), _c(A.indices, idt), _c(A.data, vdt)]
+    b = [_c(B.indptr, idt), _c(B.indices, idt), _c(B.data, vdt)]
+    p = [_c(P.indptr, idt), _c(P.indices, idt)]
+    out = np.empty(P.nnz, dtype=vdt)
+    getattr(lib, "spgemm_onto_pattern" + suffix)(
+        *map(_p, a), *map(_p, b), *map(_p, p), A.shape[0], B.shape[1],
+        int(lump), _p(out))
+    res = sp.csr_matrix((out, P.indices.copy(), P.indptr.copy()),
+                        shape=(A.shape[0], B.shape[1]))
+    res.has_sorted_indices = True
+    return res

@@ -1,14 +1,31 @@
-"""Device-resident solvers: a fixed number of iterations, no host syncs.
+"""Device-resident solvers.
 
 The reference traces these into one XLA program
 (pflare_tpu/solvers/jitted.py); PyTorch runs eagerly, so here they are
-Python loops whose every step only enqueues device work.  Residual norms
-stay on the device until the caller reads them.
+Python loops.  ``richardson_fixed``, ``fgmres_fixed`` and
+``gmres_right_fixed`` run a fixed number of iterations whose every step
+only enqueues device work: residual norms stay on the device until the
+caller reads them.  ``gmres_stationary`` is restarted GMRES with early
+exit: it reads one Hessenberg column back an Arnoldi step, the one host
+round trip a convergence test needs.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import scipy.linalg as sla
 import torch
+
+# device-to-host reads made by gmres_stationary (the tests and chip_smoke.py
+# count them)
+HOST_READS = 0
+
+
+def _read(t) -> np.ndarray:
+    """One counted device-to-host read."""
+    global HOST_READS
+    HOST_READS += 1
+    return t.cpu().numpy()
 
 
 def richardson_fixed(matvec, precond, b, max_it: int, x0=None):
@@ -72,3 +89,114 @@ def gmres_right_fixed(matvec, precond, b, max_it: int, x0=None):
     """Right-preconditioned GMRES, fixed iterations, on the device: with a
     fixed preconditioner right GMRES is FGMRES."""
     return fgmres_fixed(matvec, precond, b, max_it, x0=x0)
+
+
+def gmres_stationary(matvec, precond, b, x0, rtol, atol, max_it: int,
+                     restart: int, side: str = "left"):
+    """Restarted GMRES(``restart``) with a stationary preconditioner, the
+    reference's default solver (pflare_tpu/solvers/jitted.py:76-207).
+
+    Arnoldi orthogonalises by blocked two-pass classical Gram-Schmidt
+    against the basis built so far, the first j + 1 rows of a
+    preallocated ``[restart + 1, n]`` tensor (``h = V @ w; w -= h @ V``,
+    twice): two matrix-vector products a pass instead of one dot a basis
+    vector.  (The reference multiplies by all rows, the unused ones zero;
+    the sums are the same.)  Each step reads the new Hessenberg column
+    and ``||w||`` back in one tensor; the incremental Givens rotations
+    (with the reference's guard for an exact breakdown) and the
+    convergence test run on the host in the solve's dtype.  The inner
+    loop stops at the restart, at
+    ``max_it`` or once the rotated residual is <= tol; each cycle ends
+    with the true (right) or preconditioned (left) residual norm, which
+    overwrites its last estimate.  ``rtol`` is relative to the
+    (preconditioned) RHS norm, falling back to ||r0|| and then 1 for a
+    zero RHS.  The residual that ends one cycle starts the next, so a
+    solve makes iterations + cycles + 1 host reads.
+
+    Returns (x, total_it, hist, converged): hist[k] is the residual norm
+    after k iterations (max_it + 1 entries, zero beyond total_it)."""
+    if side not in ("left", "right"):
+        raise ValueError(f"unknown side {side!r}")
+    m = restart
+    dtype, device = b.dtype, b.device
+    npdt = torch.empty(0, dtype=dtype).numpy().dtype
+    one = torch.ones((), dtype=dtype, device=device)
+
+    def op(v):
+        return precond(matvec(v)) if side == "left" else matvec(precond(v))
+
+    def resid(x):
+        r = b - matvec(x)
+        return precond(r) if side == "left" else r
+
+    b_eff = precond(b) if side == "left" else b
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = resid(x)
+    rn_t = torch.linalg.norm(r)
+    rhs_norm, rn = _read(torch.stack([torch.linalg.norm(b_eff), rn_t]))
+    if not rhs_norm > 0:
+        rhs_norm = rn if rn > 0 else npdt.type(1.0)
+    tol = max(npdt.type(rtol) * rhs_norm, npdt.type(atol))
+    hist = np.zeros(max_it + 1, dtype=npdt)
+    hist[0] = rn
+    V = torch.empty((m + 1, b.shape[0]), dtype=dtype, device=device)
+    diag = np.arange(m)
+    tot = 0
+    done = rn <= tol
+    while not done and tot < max_it:
+        V[0] = r / torch.where(rn_t > 0, rn_t, one)
+        H = np.zeros((m + 1, m), dtype=npdt)
+        cs = np.zeros(m, dtype=npdt)
+        sn = np.zeros(m, dtype=npdt)
+        g = np.zeros(m + 1, dtype=npdt)
+        g[0] = res = rn
+        j = 0
+        while j < m and tot + j < max_it and res > tol:
+            w = op(V[j])
+            Vj = V[: j + 1]
+            h1 = torch.mv(Vj, w)
+            w = w - torch.mv(Vj.T, h1)
+            h2 = torch.mv(Vj, w)
+            w = w - torch.mv(Vj.T, h2)
+            hj1 = torch.linalg.norm(w)
+            V[j + 1] = w / torch.where(hj1 > 0, hj1, one)
+            hcol = np.zeros(m + 1, dtype=npdt)
+            hcol[: j + 2] = _read(torch.cat([h1 + h2, hj1[None]]))
+            for i in range(j):     # the stored rotations
+                hi, hi1 = hcol[i], hcol[i + 1]
+                hcol[i] = cs[i] * hi + sn[i] * hi1
+                hcol[i + 1] = -sn[i] * hi + cs[i] * hi1
+            a, bb = hcol[j], hcol[j + 1]
+            rho = np.hypot(a, bb)
+            gj = g[j]
+            if rho > 0:
+                cs[j], sn[j] = a / rho, bb / rho
+                hcol[j] = cs[j] * a + sn[j] * bb
+                g[j + 1] = -sn[j] * gj
+                g[j] = cs[j] * gj
+                res = abs(g[j + 1])
+            else:
+                # exact breakdown: the column adds nothing, and the residual
+                # stays at its value before the step
+                cs[j], sn[j] = 1, 0
+                res = abs(gj)
+            hcol[j + 1] = 0
+            H[:, j] = hcol
+            hist[tot + j + 1] = res
+            j += 1
+        # back-substitution: the diagonal of unused and breakdown columns
+        # is patched to 1 and their g entry to 0, so y there is 0
+        Hs = H[:m, :m]
+        alive = (diag < j) & (np.abs(Hs[diag, diag]) > 0)
+        Hs[diag, diag] = np.where(alive, Hs[diag, diag], 1)
+        y = sla.solve_triangular(Hs, np.where(alive, g[:m], 0), lower=False)
+        update = torch.mv(V[:j].T, torch.as_tensor(y[:j], dtype=dtype,
+                                                   device=device))
+        x = x + (precond(update) if side == "right" else update)
+        tot += j
+        r = resid(x)
+        rn_t = torch.linalg.norm(r)
+        rn = _read(rn_t)[()]
+        hist[tot] = rn
+        done = rn <= tol
+    return x, tot, hist, bool(done)

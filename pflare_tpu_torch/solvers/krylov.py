@@ -36,8 +36,20 @@ class SolveResult:
         return np.asarray(self.residual_norms)
 
 
+# device-to-host reads made by the host-driven solvers (the tests and
+# chip_smoke.py count them)
+HOST_READS = 0
+
+
+def _scalar(t) -> float:
+    """One counted device-to-host read of a 0-d tensor."""
+    global HOST_READS
+    HOST_READS += 1
+    return float(t)
+
+
 def _norm(v):
-    return float(torch.linalg.norm(v))
+    return _scalar(torch.linalg.norm(v))
 
 
 def richardson(A, b, x0=None, M=None, rtol=1e-5, atol=1e-50, max_it=1000,
@@ -73,13 +85,13 @@ def _mgs(V, w, H, j):
     ifneeded; the reference relies on PETSc's GMRES here)."""
     wnorm0 = _norm(w)
     for i in range(j + 1):
-        hij = float(torch.dot(V[i], w))
+        hij = _scalar(torch.dot(V[i], w))
         H[i, j] = hij
         w = w - hij * V[i]
     hj1 = _norm(w)
     if hj1 < 0.5 * wnorm0 and wnorm0 > 0.0:
         for i in range(j + 1):
-            c = float(torch.dot(V[i], w))
+            c = _scalar(torch.dot(V[i], w))
             H[i, j] += c
             w = w - c * V[i]
         hj1 = _norm(w)

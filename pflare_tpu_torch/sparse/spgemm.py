@@ -4,8 +4,9 @@ A plan is built once from static patterns (the symbolic half of PETSc's
 MatMatMult, reference: src/AIR_Operators_Setup.F90:960-1033,
 src/Gmres_Poly.F90:777); its numeric execution is a gather, multiply and
 segment sum over the product triples.  Ported from
-``pflare_tpu.sparse.spgemm`` for the host setup (``execute_host``); the
-device execution of a plan waits for the device re-setup.
+``pflare_tpu.sparse.spgemm`` for the host setup and its same-pattern
+re-setup (``execute_host``); the device execution of a plan waits for the
+device re-setup.
 """
 
 from __future__ import annotations
@@ -27,7 +28,10 @@ class SpGEMMPlan:
     ``a_pos``/``b_pos`` index the CSR value arrays of A and B, ``out_pos``
     is the CSR entry of C each product term lands in."""
 
-    def __init__(self, pat_C: SparsityPattern, a_pos, b_pos, out_pos):
+    def __init__(self, pat_A: SparsityPattern, pat_B: SparsityPattern,
+                 pat_C: SparsityPattern, a_pos, b_pos, out_pos):
+        self.pat_A = pat_A
+        self.pat_B = pat_B
         self.pat_C = pat_C
         self.a_pos = np.asarray(a_pos)
         self.b_pos = np.asarray(b_pos)
@@ -35,8 +39,15 @@ class SpGEMMPlan:
 
     def execute_host(self, a_data: np.ndarray, b_data: np.ndarray
                      ) -> np.ndarray:
-        """CSR value arrays in, CSR-ordered C values out; each output sums
-        its terms in triple order (the reference's accumulation order)."""
+        """CSR value arrays in, CSR-ordered C values out (float64); each
+        output sums its terms in triple order (the reference's
+        accumulation order): one native pass, or a numpy bincount."""
+        from ..native import plan_execute_native
+
+        out = plan_execute_native(a_data, b_data, self.a_pos, self.b_pos,
+                                  self.out_pos, self.pat_C.nnz)
+        if out is not None:
+            return out
         prod = a_data[self.a_pos] * b_data[self.b_pos]
         return np.bincount(self.out_pos, weights=prod,
                            minlength=self.pat_C.nnz)
@@ -45,7 +56,15 @@ class SpGEMMPlan:
 def build_spgemm_plan(pat_A: SparsityPattern, pat_B: SparsityPattern,
                       pat_C: SparsityPattern) -> SpGEMMPlan:
     """Enumerate the product triples (i,k)(k,j) that land in pattern C,
-    row by row, A's entries in order and B's in order within each."""
+    row by row, A's entries in order and B's in order within each: one
+    native pass, or numpy."""
+    from ..native import plan_triples_native
+
+    nat = plan_triples_native(pat_A.indptr, pat_A.indices, pat_B.indptr,
+                              pat_B.indices, pat_C.indptr, pat_C.indices,
+                              pat_B.shape[1])
+    if nat is not None:
+        return SpGEMMPlan(pat_A, pat_B, pat_C, *nat)
     a_cols = pat_A.indices
     b_indptr = pat_B.indptr
     # per A entry: the number of B entries in row a_cols[t]
@@ -57,7 +76,8 @@ def build_spgemm_plan(pat_A: SparsityPattern, pat_B: SparsityPattern,
     b_idx = np.repeat(b_indptr[a_cols], rep) + off
     out_pos = pat_C.find(pat_A.row_of_pos()[a_idx], pat_B.indices[b_idx])
     keep = out_pos >= 0
-    return SpGEMMPlan(pat_C, a_idx[keep], b_idx[keep], out_pos[keep])
+    return SpGEMMPlan(pat_A, pat_B, pat_C, a_idx[keep], b_idx[keep],
+                      out_pos[keep])
 
 
 class FixedSparsityPolyPlan:
@@ -86,6 +106,7 @@ class FixedSparsityPolyPlan:
         S = _csr64(S + sp.csr_matrix(
             (np.ones(n), (np.arange(n), np.arange(n))), shape=S.shape))
         self.pat_S = SparsityPattern(S.indptr, S.indices, S.shape)
+        self.pat_A = pat_A
         # (X @ A)|_S with X on S: the running power stays the first operand
         self.step_plan = build_spgemm_plan(self.pat_S, pat_A, self.pat_S)
         self.inject_pos = self.pat_S.find(pat_A.row_of_pos(), pat_A.indices)

@@ -2,7 +2,10 @@
 
 Reference: src/Timers.F90 -- cumulative timers keyed by setup phase
 (air_setup, air_coarsen, air_extract, air_inverse, air_prolong,
-air_restrict, air_rap), read with ``get_timers``.
+air_restrict, air_rap), read with ``get_timers``.  A same-pattern
+re-setup by stored plans (air/host_resetup.py) splits its levels'
+time into resetup_gather, resetup_coeffs, resetup_inverse and
+resetup_products.
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ LABELS = {
     "air_identity": "Identity/IS time",
     "air_constrain": "Constraint time",
     "air_repartition": "Repartition time",
+    "air_reuse_plan": "Reuse plan time",
+    "resetup_gather": "Re-setup gather time",
+    "resetup_coeffs": "Re-setup coefficient time",
+    "resetup_inverse": "Re-setup inverse time",
+    "resetup_products": "Re-setup product time",
 }
 
 

@@ -3,8 +3,8 @@
 Same matrix, same seeds, f64 (and the f32 host setup of the bench):
 CF markers, level sizes and nnz are identical; coefficients and operator
 values agree to 1e-12; ``apply`` to 1e-10; the Richardson norm history of
-``solve_device`` to 1e-8 of the initial norm; GMRES iteration counts
-equal the reference's host-driven (``eager=True``) counts.  Every test
+``solve_device`` to 1e-8 of the initial norm; the host-driven GMRES
+(``eager=True``) iteration counts equal the reference's.  Every test
 that holds the port against the reference takes the ``host_kernels``
 fixture (tests/torch_reference.py), so both packages run their setup on
 the same host kernels.
@@ -219,8 +219,8 @@ _VARIANTS = {
 def test_inverse_variants_match_reference_apply(variant, host_kernels):
     """Level smoothers and coarse solvers beyond the main path's:
     matrix-free Arnoldi (Horner), assembled Newton, diagonally scaled
-    power basis, and every other inverse type ``check_options`` admits
-    (Neumann in both forms, Jacobi, weighted Jacobi, SAI, ISAI, LU), with
+    power basis, and every other inverse type (Neumann in both forms,
+    Jacobi, weighted Jacobi, SAI, ISAI, LU), with
     LU also as the coarse solver.  Kinds equal, coefficients to 1e-12,
     ``apply`` to 1e-10."""
     kw = _VARIANTS[variant]
@@ -271,32 +271,13 @@ def test_numpy_fallbacks_match_native(monkeypatch):
     _same_csr(nat.coarse_matrix, fb.coarse_matrix, 1e-12)
 
 
-def test_unported_options_are_refused():
-    """Every AIROptions field but reuse_sparsity is honoured: only sparsity
-    reuse is refused, before any setup runs."""
-    tpf.PCAIR(tpf.AIROptions(inverse_type="SAI",
-                             coarsest_inverse_type="LU"), **F64)
-    tpf.PCAIR(tpf.AIROptions(symmetric=True, reorder="rcm",
-                             full_smoothing_up_and_down=True,
-                             cf_splitting_type="CR", z_type="LAIR",
-                             one_point_classical_prolong=False,
-                             constrain_w=True, improve_z_its=1,
-                             strong_r_threshold=0.1,
-                             auto_truncate_start_level=2), **F64)
-    tpf.PCAIR(tpf.AIROptions().with_smooth_type("fcf"), **F64)
-    with pytest.raises(NotImplementedError, match="reuse_sparsity"):
-        tpf.PCAIR(tpf.AIROptions(reuse_sparsity=True), **F64)
-    pc = tpf.PCAIR(**F64)
-    with pytest.raises(RuntimeError):
-        pc.apply(np.zeros(4))
-
-
 # ~~~~~~ torch copies of the reference's oracles (tests/test_air.py) ~~~~~~
 
 def _gmres_pair(A, opts_kw, b, x0=None, **solve_kw):
-    """(port result, reference eager iteration count) of one GMRES solve."""
+    """(port result, reference eager iteration count) of one GMRES solve,
+    both by the host-driven GMRES (``eager=True``)."""
     tpc = tpf.PCAIR(tpf.AIROptions(**opts_kw), **F64).setup(A)
-    res = tpc.solve(b, x0=x0, **solve_kw)
+    res = tpc.solve(b, x0=x0, eager=True, **solve_kw)
     jpc = jpf.PCAIR(jpf.AIROptions(**opts_kw), jit=False).setup(A)
     jres = jpc.solve(jnp.asarray(b),
                      x0=None if x0 is None else jnp.asarray(x0),

@@ -217,11 +217,12 @@ def test_apply_matches_reference(case, host_kernels):
 @pytest.mark.parametrize("case", list(CASES))
 def test_solve_matches_reference(case, host_kernels):
     """Equal iteration counts, residual histories within HISTORY_RTOL
-    relative, and the port's x solves the caller's system."""
+    relative, and the port's x solves the caller's system; GMRES by the
+    host-driven solver (``eager=True``) in both packages."""
     A, jpc, tpc = _pair(case, host_kernels)
     kw = dict(rtol=1e-5, max_it=15) | CASES[case][2]
     b = rhs(A.shape[0], seed=1)
-    res = tpc.solve(b, **kw)
+    res = tpc.solve(b, eager=True, **kw)
     jres = jpc.solve(jnp.asarray(b), eager=True, **kw)
     assert res.iterations == jres.iterations
     assert res.converged == jres.converged

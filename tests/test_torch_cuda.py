@@ -261,3 +261,57 @@ def test_air_options_card_match_cpu(kw):
                           atol=1e-12 * float(ref_norms[0]))
     true = np.linalg.norm(A @ x.cpu().numpy() - b) / np.linalg.norm(b)
     assert abs(true - float(norms[-1] / norms[0])) <= 1e-8 + 1e-6 * true
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_stationary_gmres_card_matches_eager_and_cpu(side):
+    """The default GMRES (gmres_stationary) on the card: the history of
+    the host-driven GMRES on the card and of the default GMRES on the CPU
+    (one host setup, ``PCAIR.on``) to 1e-8 of each norm or 1e-12 of the
+    first, with one host read an iteration and a cycle."""
+    from pflare_tpu_torch.solvers import jitted
+
+    dev = _card()
+    A = tpf.adv_diff_2d(48)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    pc = tpf.PCAIR(dtype=torch.float64, device=dev).setup(A)
+    kw = dict(side=side, rtol=1e-10, max_it=60, restart=4)
+    reads = jitted.HOST_READS
+    tdia.KERNEL_LAUNCHES = 0
+    res = pc.solve(b, **kw)
+    reads = jitted.HOST_READS - reads
+    assert tdia.KERNEL_LAUNCHES > 0 and res.converged
+    assert reads <= res.iterations + 2 * (-(-res.iterations // 4)) + 2
+    for ref in (pc.solve(b, eager=True, **kw), pc.on("cpu").solve(b, **kw)):
+        assert res.iterations == ref.iterations
+        h, hr = res.history, ref.history
+        assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0])
+
+
+@pytest.mark.parametrize("amount", [1, 2, 3])
+def test_resetup_card_matches_cpu(amount):
+    """A same-pattern re-setup (``setup(A2, "same")``) uploads the new
+    values: the card's history equals a CPU twin's made after the
+    re-setup, and the DIA kernel runs."""
+    dev = _card()
+    A = tpf.adv_diff_2d(48)
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 0.01 * np.random.default_rng(4)
+                         .standard_normal(A.nnz))
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    pc = tpf.PCAIR(tpf.AIROptions(a_lump=True, a_drop=1e-5,
+                                  strong_threshold=0.99, reuse_sparsity=True,
+                                  reuse_amount=amount),
+                   dtype=torch.float64, device=dev).setup(A)
+    first = pc.upload()
+    pc.setup(A2, "same")
+    assert pc.upload() is not first
+    tdia.KERNEL_LAUNCHES = 0
+    res = pc.solve(b, side="right", rtol=1e-10, max_it=60)
+    assert tdia.KERNEL_LAUNCHES > 0 and res.converged
+    ref = pc.on("cpu").solve(b, side="right", rtol=1e-10, max_it=60)
+    assert res.iterations == ref.iterations
+    h, hr = res.history, ref.history
+    assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0])
+    x = res.x.cpu().numpy()
+    assert np.linalg.norm(A2 @ x - b) <= 1e-8 * np.linalg.norm(b)
