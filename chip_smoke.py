@@ -81,12 +81,30 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     its seeded perturbation (``setup(A2, "same")``) and solved by right
     GMRES to rtol 1e-10 on the card and on a CPU twin made after the
     re-setup (phase 10's rule, the DIA kernel launched); (b) at 2048^2,
-    the phase-7 options with ``reuse_amount=2``, set up from the f64
-    matrix for an f32 solve (the plan re-setup computes in f64, as the
-    reference's does), re-set up by its plans: first setup, re-setup,
-    their ratio and the ``resetup_*`` split, the upload, and
-    ``solve_device`` with 10 Richardson iterations and the counters at
-    0: rtol 1e-5, the true residual <= 1e-4, both kernels launched.
+    the phase-7 options with ``reuse_amount=3`` (so that phase 12 (b)
+    shares the first setup), set up from the f64 matrix for an f32 solve
+    (the plan re-setup computes in f64, as the reference's does), re-set
+    up by its plans: first setup, re-setup, their ratio and the
+    ``resetup_*`` split, the upload, and ``solve_device`` with 10
+    Richardson iterations and the counters at 0: rtol 1e-5, the true
+    residual <= 1e-4, both kernels launched;
+12. the device re-setup (``build_device_resetup``, ``install``): (a) at
+    512^2, f64, the bench's options and depth with ``reuse_amount=3``
+    and ``reuse_poly_coeffs``: first setup, plan build, first and warm
+    install against ``setup(A2, "same")`` + ``upload`` of a second
+    PCAIR, each to completion; every rebuilt operator (``top`` and the
+    coarse inverse too) within 1e-10 of the host's largest entry; the
+    synchronisations of one install (``count_syncs``: none); right GMRES
+    to rtol 1e-10 with the host re-setup's iterations, and a CPU twin
+    (its own plan, the same install) within phase 10's rule; three
+    installs on drifting seeded matrices, each converging with its true
+    residual by scipy; the plan alone card against CPU (1e-12) on
+    ``PHASE12_SETS`` at 128^2; (b) at 2048^2, f32, phase 11 (b)'s
+    PCAIR: plan build, first and warm install of phase 11's matrix
+    against its host re-setup + upload, the plan's device bytes and the
+    peak device memory, ``solve_device`` with 10 Richardson iterations
+    (rtol 1e-5, true residual <= 1e-4, both kernels launched), one
+    install under torch.profiler.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -118,6 +136,16 @@ REPLAYS = 4          # timed replays of that graph
 L2_BYTES = 50e6      # the H100's L2 cache
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_FLOPS = 67e12   # H100 SXM float32 outside the tensor cores
+
+
+def host_gib() -> str:
+    """The process's resident host memory, from /proc/self/status."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return (f"host memory {int(line.split()[1]) / 2**20:.2f} "
+                        "GiB resident")
+    return "host memory not read"
 
 
 def require(cond, msg):
@@ -653,9 +681,15 @@ def main() -> int:
     print(f"# phase 10: {t_phase10:.3f} s")
 
     # ~~~~~~~~~~ 11. same-pattern re-setup ~~~~~~~~~~
-    reuse_runs, t_phase11 = phase11(np, sp, torch, tpf, tdia, tbanded, dev,
-                                    A512, A2k, setup_breakdown)
+    reuse_runs, t_phase11, handoff = phase11(
+        np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, setup_breakdown)
     print(f"# phase 11: {t_phase11:.3f} s")
+
+    # ~~~~~~~~~~ 12. device re-setup ~~~~~~~~~~
+    resetup_runs, t_phase12 = phase12(np, sp, torch, tpf, tdia, tbanded,
+                                      dev, A512, A2k, handoff)
+    del handoff
+    print(f"# phase 12: {t_phase12:.3f} s")
 
     kernels = []
     for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
@@ -694,7 +728,8 @@ def main() -> int:
                                  / max(run["iterations"], 1)}
                      for label, run in runs.items()}
                for key, runs in (("gmres_2048", gmres_runs),
-                                 ("reuse", reuse_runs))},
+                                 ("reuse", reuse_runs),
+                                 ("device_resetup", resetup_runs))},
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1296,8 +1331,9 @@ def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
 
         # (b) 2048^2, f32 solve of a hierarchy set up from the f64 matrix
         # (the plan re-setup computes in f64, as the reference's does)
+        print(f"# phase 11 (b) starts: {host_gib()}", flush=True)
         opts = bench_options(tpf, max_levels=10).replace(
-            reuse_sparsity=True, reuse_amount=2)
+            reuse_sparsity=True, reuse_amount=3, reuse_poly_coeffs=True)
         pc = tpf.PCAIR(opts, dtype=torch.float32, device=dev)
         reset_timers()
         t0 = time.perf_counter()
@@ -1329,7 +1365,8 @@ def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
         its = _converged_at(np, norms, 1e-5)
         true = float(np.linalg.norm(A2k2 @ x.double().cpu().numpy() - b2k)
                      / np.linalg.norm(b2k))
-        print(f"# 2048^2 reuse amount 2 (f64 setup, f32 solve): first "
+        print(f"# 2048^2 after the re-setup: {host_gib()}")
+        print(f"# 2048^2 reuse amount 3 (f64 setup, f32 solve): first "
               f"setup {t_first:.3f} s ({first_split}), re-setup {t_re:.3f} "
               f"s ({resetup_split()}), {t_first / t_re:.2f}x, {fast} of "
               f"{len(pc.hierarchy.levels)} levels by plans; upload "
@@ -1342,9 +1379,10 @@ def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
                 f"2048^2 reuse: did not converge ({true:.3e})")
         require(launches["dia"] > 0 and launches["banded"] > 0,
                 f"2048^2 reuse: a kernel was not launched: {launches}")
-        runs["2048 reuse amount 2"] = {"launches": launches,
+        runs["2048 reuse amount 3"] = {"launches": launches,
                                        "iterations": 10}
-        del pc, dh, x, A2k2
+        handoff = {"pc": pc, "A2": A2k2, "host_s": t_re + t_upload}
+        del dh, x
 
         for label, line, res, launches, twin in pending:
             h_cpu, t_cpu = twin.result()
@@ -1363,6 +1401,223 @@ def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
         torch.set_num_threads(n_threads)
+    return runs, time.perf_counter() - t_phase, handoff
+
+
+# (label, options) of phase 12 (a)'s plan-alone check, card against CPU:
+# configurations of the reference's device re-setup tests
+# (tests/test_device_resetup.py:60-133) and the auto-truncated one
+PHASE12_SETS = (
+    ("strong R", dict(strong_r_threshold=0.01)),
+    ("lAIR", dict(z_type="LAIR")),
+    ("SAI smoother", dict(inverse_type="SAI")),
+    ("full smoothing", dict(full_smoothing_up_and_down=True)),
+    ("fcf C smoothing", dict(smooth_order="fcf")),
+    ("Newton matrix-free coarse", dict(coarsest_inverse_type="NEWTON",
+                                       coarsest_matrix_free_polys=True,
+                                       coarsest_poly_order=10)),
+    ("constrain_z", dict(constrain_z=True)),
+    ("LU coarse", dict(coarsest_inverse_type="LU")),
+    ("auto-truncated", dict(auto_truncate_start_level=2,
+                            auto_truncate_tol=0.5, coarsest_poly_order=12)),
+)
+
+
+def max_rel_diff(np, got, want):
+    """The largest difference of two ``DeviceHierarchy.to_scipy`` dicts,
+    each operator's over its largest entry, and the operator."""
+    require(got.keys() == want.keys(), "the device hierarchies hold "
+            f"different operators: {sorted(got.keys() ^ want.keys())}")
+    worst = (0.0, "")
+    for name in want:
+        scale = max(float(abs(want[name]).max()), 1e-300)
+        worst = max(worst, (float(abs(got[name] - want[name]).max()) / scale,
+                            name))
+    return worst
+
+
+def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, handoff):
+    """The device re-setup (see the module docstring, phase 12).  Returns
+    the runs ({label: {"launches", "iterations"}}) and the phase's
+    seconds."""
+    from pflare_tpu_torch.sparse import BandedSpMV
+    from pflare_tpu_torch.utils.timers import count_syncs, device_sync_read
+
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+
+    def zero_counts():
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def has_banded(dh):
+        return any(isinstance(op, BandedSpMV) for lev in dh.levels
+                   for op in lev.values())
+
+    runs = {}
+    # (a) 512^2, f64, the bench's options and depth
+    opts = tpf.AIROptions().replace(**(BENCH_DEPTH | _bench_kw()),
+                                    reuse_sparsity=True, reuse_amount=3,
+                                    reuse_poly_coeffs=True)
+    A2 = perturbed(np, A512, 7)
+    b = np.random.default_rng(0).standard_normal(A512.shape[0])
+    kw = dict(side="right", rtol=1e-10, atol=1e-50, max_it=60)
+    pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev)
+    _, t_first = timed(pc.setup, A512)
+    twin = pc.on("cpu")
+    plan, t_plan = timed(pc.build_device_resetup)
+    _, t_install = timed(plan.install, pc, A2)
+    _, t_warm = timed(plan.install, pc, A2)
+    _, n_sync = count_syncs(plan.install, pc, A2)
+    host = tpf.PCAIR(opts, dtype=torch.float64, device=dev).setup(A512)
+    t0 = time.perf_counter()
+    host.setup(A2, "same")
+    host.upload()
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    diff, where = max_rel_diff(np, pc.upload().to_scipy(),
+                               host.upload().to_scipy())
+    print(f"# 512^2 f64 device re-setup: first setup {t_first:.3f} s, plan "
+          f"{t_plan:.3f} s ({plan.device_bytes / 1e6:.1f} MB on the card), "
+          f"install {t_install:.4f} s first / {t_warm:.4f} s warm, host "
+          f"re-setup + upload {t_host:.4f} s ({t_host / t_warm:.1f}x the "
+          f"warm install); operators within {diff:.3e} of the host's "
+          f"({where}); synchronisations in one install {n_sync}")
+    require(diff <= 1e-10, f"512^2 device re-setup: {where} differs from "
+            f"the host re-setup's by {diff:.3e} of its largest entry")
+    require(n_sync == 0, f"512^2 device re-setup: {n_sync} synchronisations "
+            "in one install")
+    twin.build_device_resetup().install(twin, A2)
+    hres = host.solve(b, **kw)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = pc.solve(b, **kw)
+    device_sync_read(res.x)
+    t_card = time.perf_counter() - t0
+    launches = counts()
+    h_cpu, t_cpu = _timed_solve(twin, b, kw)
+    h = res.history
+    rel = np.abs(h - h_cpu)
+    print(f"# 512^2 f64 device re-setup: right GMRES {res.iterations} its "
+          f"(host re-setup {hres.iterations}), card {t_card:.4f} s, CPU twin "
+          f"{t_cpu:.4f} s, history max relative difference "
+          f"{float(np.max(rel / h_cpu)):.3e}, launches {launches}")
+    require(res.converged and res.iterations == hres.iterations,
+            "512^2 device re-setup: GMRES iterations differ from the host "
+            "re-setup's")
+    require(len(h) == len(h_cpu) and np.all(
+        rel <= HISTORY_RTOL * h_cpu + HISTORY_FLOOR * h_cpu[0]),
+        "512^2 device re-setup: card and CPU twin histories differ")
+    banded = has_banded(pc.upload())
+    require(launches["dia"] > 0 and (launches["banded"] > 0 or not banded),
+            f"512^2 device re-setup: a kernel was not launched: {launches}")
+    runs["512 device re-setup"] = {"launches": launches,
+                                   "iterations": res.iterations}
+    del host, twin
+    for step in range(3):
+        A_s = A512.copy()
+        A_s.data = A_s.data * (1.0 + 0.02 * (step + 1) * np.random
+                               .default_rng(20 + step)
+                               .standard_normal(A512.nnz))
+        _, t_s = timed(plan.install, pc, A_s)
+        zero_counts()
+        res = pc.solve(b, **kw)
+        launches = counts()
+        true = float(np.linalg.norm(A_s @ res.x.cpu().numpy() - b)
+                     / np.linalg.norm(b))
+        print(f"# 512^2 f64 install {step + 1} (drift "
+              f"{0.02 * (step + 1):.2f}): {t_s:.4f} s, right GMRES "
+              f"{res.iterations} its, true residual {true:.3e}, launches "
+              f"{launches}")
+        require(res.converged and true <= 1e-8, f"512^2 install {step + 1}: "
+                f"true residual {true:.3e}")
+        require(launches["dia"] > 0, f"512^2 install {step + 1}: the DIA "
+                "kernel was not launched")
+        runs[f"512 install {step + 1}"] = {"launches": launches,
+                                           "iterations": res.iterations}
+    del pc, plan
+
+    # the plan alone, card against CPU, on the reference's configurations
+    A128 = tpf.adv_diff_2d(128)
+    A128_2 = perturbed(np, A128, 8)
+    for label, set_kw in PHASE12_SETS:
+        o = tpf.AIROptions().replace(reuse_sparsity=True, reuse_amount=3,
+                                     reuse_poly_coeffs=True, max_levels=5,
+                                     **set_kw)
+        pcs = tpf.PCAIR(o, dtype=torch.float64, device=dev).setup(A128)
+        cpu = pcs.on("cpu")
+        (dh, n_s) = count_syncs(pcs.build_device_resetup(), A128_2)
+        dh_cpu = cpu.build_device_resetup()(A128_2)
+        diff, where = max_rel_diff(np, dh.to_scipy(), dh_cpu.to_scipy())
+        print(f"# 128^2 f64 device re-setup plan, {label}: card against CPU "
+              f"{diff:.3e} ({where}), synchronisations {n_s}")
+        # the card's atomic segment sums round otherwise than the CPU's
+        # ordered ones, and the difference grows down the levels (to
+        # 5.6e-12 at level 7 of a 12-level constrained hierarchy at 48^2)
+        require(diff <= 1e-11, f"128^2 {label}: the card's plan differs from "
+                f"the CPU's by {diff:.3e} at {where}")
+    t_a = time.perf_counter() - t_phase
+
+    # (b) 2048^2, f32: phase 11 (b)'s PCAIR and matrix
+    pc, A2k2 = handoff["pc"], handoff["A2"]
+    torch.cuda.reset_peak_memory_stats()
+    plan, t_plan = timed(pc.build_device_resetup)
+    _, t_install = timed(plan.install, pc, A2k2)
+    _, t_warm = timed(plan.install, pc, A2k2)
+    _, n_sync = count_syncs(plan.install, pc, A2k2)
+    peak = torch.cuda.max_memory_allocated()
+    b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
+    zero_counts()
+    t0 = time.perf_counter()
+    x, norms = pc.solve_device(b2k, max_it=10, ksp="richardson")
+    device_sync_read(x, norms)
+    t_solve = time.perf_counter() - t0
+    launches = counts()
+    norms = norms.cpu().numpy()
+    its = _converged_at(np, norms, 1e-5)
+    true = float(np.linalg.norm(A2k2 @ x.double().cpu().numpy() - b2k)
+                 / np.linalg.norm(b2k))
+    print(f"# 2048^2 f32 device re-setup: plan {t_plan:.3f} s "
+          f"({plan.device_bytes / 1e9:.3f} GB on the card), install "
+          f"{t_install:.4f} s first / {t_warm:.4f} s warm, against host "
+          f"re-setup + upload {handoff['host_s']:.3f} s "
+          f"({handoff['host_s'] / t_warm:.1f}x); peak device memory "
+          f"{peak / 1e9:.3f} GB; synchronisations in one install {n_sync}; "
+          f"solve_device 10 Richardson its {t_solve:.4f} s, rtol 1e-5 at "
+          f"iteration {its}, true residual {true:.3e}, launches {launches}; "
+          f"{host_gib()}")
+    require(its is not None and true <= 1e-4 and np.isfinite(norms).all(),
+            f"2048^2 device re-setup: did not converge ({true:.3e})")
+    require(launches["dia"] > 0 and launches["banded"] > 0,
+            f"2048^2 device re-setup: a kernel was not launched: {launches}")
+    runs["2048 device re-setup"] = {"launches": launches, "iterations": 10}
+
+    # one warm install under the profiler, device activity alone
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, t_prof = timed(plan.install, pc, A2k2)
+    busy_us, ops = 0.0, []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            busy_us += evt.self_device_time_total
+            ops.append((evt.self_device_time_total, evt.count, evt.key))
+    ops.sort(reverse=True)
+    print(f"# 2048^2 f32 profiled install: wall {t_prof:.4f} s, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / 1e6 / t_prof:.1%}; top device ops: " + "; ".join(
+              f"{key[:60]} {t / 1e3:.3f} ms in {c}" for t, c, key in ops[:6]))
+    print(f"# phase 12 (a) {t_a:.3f} s, (b) "
+          f"{time.perf_counter() - t_phase - t_a:.3f} s")
+    del pc, plan, x
     return runs, time.perf_counter() - t_phase
 
 

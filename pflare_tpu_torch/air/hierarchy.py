@@ -83,6 +83,30 @@ class DeviceHierarchy:
     top: object = None
     full_smoothing: bool = False
 
+    def to_scipy(self) -> dict:
+        """{name: host csr} of every operator: each level's, its
+        inverses' operators and diagonals, the coarse inverse and ``top``
+        (to compare two device forms of one hierarchy)."""
+        out = {"top": self.top.to_scipy()}
+
+        def add(name, inv):
+            if inv.kind == "dense":
+                out[name] = sp.csr_matrix(inv.mat.cpu().numpy())
+                return
+            if inv.kind != "diagonal":
+                out[name] = inv.mat.to_scipy()
+            if inv.diag is not None:
+                out[name + " diag"] = sp.diags(inv.diag.cpu().numpy()).tocsr()
+
+        for i, lev in enumerate(self.levels):
+            for key, val in lev.items():
+                if key.startswith("inv_"):
+                    add(f"level {i} {key}", val)
+                elif key not in ("mask_f", "mask_c", "coarse"):
+                    out[f"level {i} {key}"] = val.to_scipy()
+        add("coarse inverse", self.coarse_inv)
+        return out
+
 
 @dataclass
 class Hierarchy:
@@ -91,6 +115,9 @@ class Hierarchy:
     coarse_inv: Inverse
     options: AIROptions
     auto_truncated: bool = False
+    # the constraints' candidate vectors (None: the constant vector), which
+    # the device re-setup smooths anew
+    near_nullspace: list | None = None
 
     @property
     def n_levels(self):
@@ -300,7 +327,8 @@ def setup_hierarchy(A: sp.csr_matrix, opts: AIROptions,
                     coeffs = np.asarray(previous.coarse_inv.coefficients)
                 coarse_inv = _build_coarse_inverse(A, opts, coeffs)
     return Hierarchy(levels, A, coarse_inv, opts,
-                     auto_truncated=auto_truncated)
+                     auto_truncated=auto_truncated,
+                     near_nullspace=near_nullspace)
 
 
 def _build_level(A, fine, coarse, opts: AIROptions, prev: LevelData | None,

@@ -77,6 +77,21 @@ class PCAIR:
         src/PCAIR.c:150-166)."""
         self._frozen = flag
 
+    def build_device_resetup(self):
+        """The device re-setup plan of this hierarchy
+        (air/device_resetup.py): ``plan = pc.build_device_resetup();
+        plan.install(pc, A_new)`` rebuilds the whole device form from the
+        values of a matrix with the pattern of the last setup, in the
+        caller's order, on this PCAIR's device and in its dtype.  Needs a
+        setup with ``reuse_sparsity=True, reuse_amount>=3``."""
+        from .device_resetup import DeviceResetup
+
+        if self.hierarchy is None:
+            raise RuntimeError("PCAIR not set up")
+        return DeviceResetup(
+            self.hierarchy, dtype=self.dtype, device=self.device,
+            perm=None if self._perm is None else self._perm.cpu().numpy())
+
     def setup(self, A, structure: str = "different", near_nullspace=None):
         """Build the hierarchy of the scipy matrix ``A`` on the host.
         ``structure="same"`` declares A's nonzero pattern that of the last

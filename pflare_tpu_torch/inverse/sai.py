@@ -17,12 +17,25 @@ padded by zero rows to its chunk's largest height: no unknown is padded,
 so the dense work is each row's own (lAIR's coarse levels mix rows of 1
 to ~200 unknowns).  Singular and rank-deficient blocks are redone one row
 at a time by ``_sai_z_loop``, the oracle.
+
+The device half (``SAISolvePlan``, ``sai_execute``) re-solves the rows
+of a fixed sparsity from new values: static gather tables built once on
+the host, then per chunk one batched SVD least squares on the device
+(the device re-setup's SAI/ISAI and lAIR re-solves;
+``PFLARE_SAI_DEVICE=1`` sends ``sai_z`` through it too).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import scipy.sparse as sp
+import torch
+
+from ..params import tolerances
+from ..sparse.dtypes import numpy_dtype
+from ..sparse.spgemm import index_tensor, take
 
 
 # f64 scalars of the blocks of one chunk: bounds the peak memory
@@ -51,15 +64,22 @@ def _pad_indices(M: sp.csr_matrix):
 
 
 def sai_z(A_ff, A_cf, sparsity_cf, incomplete: bool,
-          batched: bool = True) -> sp.csr_matrix:
-    """Z ~= -A_cf @ inv(A_ff) on the sparsity of ``sparsity_cf``, on the
-    host: the batched QR, or the per-row loop with ``batched=False``."""
+          batched: bool = True, device=None) -> sp.csr_matrix:
+    """Z ~= -A_cf @ inv(A_ff) on the sparsity of ``sparsity_cf``: on the
+    host the batched QR, or the per-row loop with ``batched=False``; with
+    a torch ``device``, or without one under ``PFLARE_SAI_DEVICE=1`` (then
+    on "cuda"), the batched SVD solves of ``SAISolvePlan`` on that device
+    (the reference's opt-in, pflare_tpu/inverse/sai.py:105)."""
     A_ff = sp.csr_matrix(A_ff)
     A_ff.sort_indices()
     A_cf = sp.csr_matrix(A_cf)
     A_cf.sort_indices()
     S = sp.csr_matrix(sparsity_cf)
     S.sort_indices()
+    if device is None and os.environ.get("PFLARE_SAI_DEVICE") == "1":
+        device = "cuda"
+    if device is not None and S.nnz:
+        return _sai_z_device(A_ff, A_cf, S, incomplete, torch.device(device))
     if batched and S.nnz:
         return _sai_z_batched(A_ff, A_cf, S, incomplete)
     return _sai_z_loop(A_ff, A_cf, S, incomplete)
@@ -238,3 +258,161 @@ def sai_inverse(A, incomplete: bool, sparsity=None) -> sp.csr_matrix:
         (np.full(n, -1.0), (np.arange(n), np.arange(n))), shape=(n, n))
     S = sp.csr_matrix(sparsity) if sparsity is not None else A.copy()
     return sai_z(A, negI, S, incomplete)
+
+
+# ~~~~~~~~~~~~~~~~~~~~~ device re-solves ~~~~~~~~~~~~~~~~~~~~~
+
+# f64 scalars of the blocks of one device chunk (the reference's size)
+_DEVICE_CHUNK_SCALARS = 1 << 24
+
+
+def _sv_cutoff(dtype) -> float:
+    """The relative singular-value cutoff of the least squares, matched to
+    the dtype (sigma_drop: 1e-13 in f64, 1e-6 in f32)."""
+    return float(tolerances(numpy_dtype(dtype, np.float64)).sigma_drop)
+
+
+def _lookup_pos(A, rows, cols):
+    """Position of each (row, col) in A's sorted entry list, -1 where
+    absent; ``rows`` and ``cols`` of one (any) shape."""
+    keys = _rows_of(A) * np.int64(A.shape[1]) + A.indices
+    q = (np.asarray(rows, dtype=np.int64) * np.int64(A.shape[1])
+         + np.asarray(cols, dtype=np.int64))
+    if len(keys) == 0:
+        return np.full(q.shape, -1, dtype=np.int64)
+    pos = np.minimum(np.searchsorted(keys, q.ravel()), len(keys) - 1)
+    return np.where(keys[pos] == q.ravel(), pos, -1).reshape(q.shape)
+
+
+class SAISolvePlan:
+    """Static tables for re-solving the SAI/ISAI (or lAIR) rows of a fixed
+    sparsity ``S`` from new values (reference:
+    pflare_tpu/inverse/sai.py:286-395).  Rows go in chunks sorted by
+    descending block height, each padded to its own largest block; a
+    chunk's dense blocks are gathered from the CSR value vectors of A_ff
+    (and A_cf, or -I when ``A_cf`` is None: the square inverse), and the
+    chunk outputs map back to S's CSR order by one gather."""
+
+    def __init__(self, A_ff: sp.csr_matrix, A_cf, S: sp.csr_matrix,
+                 incomplete: bool):
+        A_ff = sp.csr_matrix(A_ff)
+        A_ff.sort_indices()
+        S = sp.csr_matrix(S)
+        S.sort_indices()
+        self.identity_rhs = A_cf is None
+        if A_cf is not None:
+            A_cf = sp.csr_matrix(A_cf)
+            A_cf.sort_indices()
+        J_idx, J_mask, kJ = _pad_indices(S)
+        if incomplete:
+            I_idx, I_mask, kI = J_idx, J_mask, kJ
+        else:
+            I_idx, I_mask, kI = _pad_indices(_shadow(S, A_ff))
+        order = np.argsort(-kI, kind="stable")
+        order = order[kJ[order] > 0]
+        rows_per_chunk = max(1, _DEVICE_CHUNK_SCALARS // max(
+            1, J_idx.shape[1] * (I_idx.shape[1] + J_idx.shape[1])))
+        self.chunks = []
+        # S entry -> 1-based position in the concatenated chunk outputs
+        out1 = np.zeros(S.nnz, dtype=np.int64)
+        offset = 0
+        for lo in range(0, len(order), rows_per_chunk):
+            sel = order[lo: lo + rows_per_chunk]
+            kc = int(kJ[sel].max())
+            ic = int(kI[sel].max())
+            Jc, Jm = J_idx[sel][:, :kc], J_mask[sel][:, :kc]
+            Ic, Im = I_idx[sel][:, :ic], I_mask[sel][:, :ic]
+            # M[r, a, c] = A_ff[J_c, I_a], the transposed local block
+            Mpos = _lookup_pos(A_ff, Jc[:, None, :], Ic[:, :, None])
+            chunk = {"Mpos": np.where(Im[:, :, None] & Jm[:, None, :],
+                                      Mpos, -1) + 1, "Jm": Jm}
+            if self.identity_rhs:
+                # A_cf = -I: the right-hand side is e_row on I
+                chunk["rhs"] = np.where((Ic == sel[:, None]) & Im, 1.0, 0.0)
+            else:
+                Rpos = _lookup_pos(
+                    A_cf, np.broadcast_to(sel[:, None], Ic.shape), Ic)
+                chunk["Rpos"] = np.where(Im, Rpos, -1) + 1
+            self.chunks.append(chunk)
+            # chunk row b emits kc values; S entry (sel[b], j) is the j-th
+            cnt = kJ[sel]
+            b_of = np.repeat(np.arange(len(sel), dtype=np.int64), cnt)
+            j = (np.arange(int(cnt.sum()), dtype=np.int64)
+                 - np.repeat(np.cumsum(cnt) - cnt, cnt))
+            out1[S.indptr[sel][b_of] + j] = offset + b_of * kc + j + 1
+            offset += len(sel) * kc
+        self.out1 = out1
+        self.pat_S = S
+
+    def device_tables(self, device, dtype) -> dict:
+        """The tables as tensors on ``device``; ``dtype`` that of the
+        values the solves will take."""
+        def values(a):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+
+        chunks = []
+        for ch in self.chunks:
+            d = {"Mpos": index_tensor(ch["Mpos"], device),
+                 "pad": values(~ch["Jm"])}
+            if self.identity_rhs:
+                d["rhs"] = values(ch["rhs"])
+            else:
+                d["Rpos"] = index_tensor(ch["Rpos"], device)
+            chunks.append(d)
+        return {"chunks": chunks, "out": index_tensor(self.out1, device)}
+
+    def execute(self, aff_flat, acf_flat=None, tables=None):
+        """Z (or M) values in S's CSR order, on the device of
+        ``aff_flat``."""
+        if tables is None:
+            tables = self.device_tables(aff_flat.device, aff_flat.dtype)
+        return sai_execute(tables, aff_flat, acf_flat)
+
+
+def sai_execute(tables: dict, aff_flat, acf_flat=None):
+    """The batched local solves of a ``SAISolvePlan`` from its device
+    tables (reference: pflare_tpu/inverse/sai.py:397-432): per chunk the
+    blocks, a unit row per padded unknown (so padded unknowns decouple and
+    come out 0), and one batched SVD least squares with the relative
+    cutoff ``_sv_cutoff`` (the reference's gels/pseudo-inverse semantics:
+    a rank-deficient block gets its minimum-norm solution).  On a CUDA
+    device ``torch.linalg.svd`` reads its convergence flag back, one
+    synchronisation a chunk."""
+    dtype = aff_flat.dtype
+    cutoff = _sv_cutoff(dtype)
+    tiny = torch.finfo(dtype).tiny
+    outs = []
+    for ch in tables["chunks"]:
+        M = take(aff_flat, ch["Mpos"])                     # [b, ic, kc]
+        pad = ch["pad"]                                     # [b, kc]
+        kc = pad.shape[1]
+        eye = torch.eye(kc, dtype=dtype, device=aff_flat.device)
+        M_ext = torch.cat([M, eye * pad[:, None, :]], dim=1)
+        rhs = ch["rhs"] if "rhs" in ch else -take(acf_flat, ch["Rpos"])
+        rhs_ext = torch.cat([rhs, torch.zeros_like(pad)], dim=1)
+        U, sv, Vh = torch.linalg.svd(M_ext, full_matrices=False)
+        smax = sv[:, :1].clamp_min(tiny)
+        sinv = torch.where(sv > cutoff * smax,
+                           1.0 / torch.where(sv != 0, sv, 1.0), 0.0)
+        utb = torch.einsum("bij,bi->bj", U, rhs_ext)
+        outs.append(torch.einsum("bji,bj->bi", Vh, sinv * utb).reshape(-1))
+    flat = (torch.cat(outs) if outs
+            else torch.zeros(0, dtype=dtype, device=aff_flat.device))
+    return take(flat, tables["out"])
+
+
+def _sai_z_device(A_ff, A_cf, S, incomplete: bool, device) -> sp.csr_matrix:
+    """``sai_z`` by the device re-solves (reference:
+    pflare_tpu/inverse/sai.py:113-204, there behind the same opt-in): the
+    plan's batched SVD solves on ``device`` in float64, the values read
+    back onto S's pattern."""
+    plan = SAISolvePlan(A_ff, A_cf, S, incomplete)
+
+    def values(M):
+        return torch.as_tensor(M.data, dtype=torch.float64, device=device)
+
+    z = plan.execute(values(A_ff), values(A_cf))
+    Z = sp.csr_matrix((z.cpu().numpy(), S.indices.copy(), S.indptr.copy()),
+                      shape=S.shape)
+    Z.sort_indices()
+    return Z

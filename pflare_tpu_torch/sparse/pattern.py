@@ -23,23 +23,38 @@ class SparsityPattern:
     maps each CSR entry position to its flat ELL position row*K + slot.
     """
 
-    __slots__ = ("shape", "nnz", "K", "indptr", "indices", "ell_cols",
-                 "slot_of_pos")
+    __slots__ = ("shape", "nnz", "K", "indptr", "indices", "_ell")
 
     def __init__(self, indptr: np.ndarray, indices: np.ndarray, shape):
         self.indptr = np.asarray(indptr, dtype=np.int64)
         self.indices = np.asarray(indices, dtype=np.int64)
         self.shape = (int(shape[0]), int(shape[1]))
         self.nnz = int(self.indices.shape[0])
-        n_rows = self.shape[0]
-        row_len = np.diff(self.indptr)
-        self.K = max(int(row_len.max(initial=0)), 1)
-        rows = np.repeat(np.arange(n_rows, dtype=np.int64), row_len)
-        offs = np.arange(self.nnz, dtype=np.int64) - np.repeat(
-            self.indptr[:-1], row_len)
-        self.ell_cols = np.zeros((n_rows, self.K), dtype=np.int32)
-        self.ell_cols[rows, offs] = self.indices.astype(np.int32)
-        self.slot_of_pos = rows * self.K + offs
+        self.K = max(int(np.diff(self.indptr).max(initial=0)), 1)
+        self._ell = None
+
+    def _ell_layout(self):
+        """(ell_cols, slot_of_pos), built on first use: the patterns of
+        the product plans never need them, and they are a large share of
+        a reuse-enabled hierarchy's memory."""
+        if self._ell is None:
+            n_rows = self.shape[0]
+            row_len = np.diff(self.indptr)
+            rows = np.repeat(np.arange(n_rows, dtype=np.int64), row_len)
+            offs = np.arange(self.nnz, dtype=np.int64) - np.repeat(
+                self.indptr[:-1], row_len)
+            ell_cols = np.zeros((n_rows, self.K), dtype=np.int32)
+            ell_cols[rows, offs] = self.indices.astype(np.int32)
+            self._ell = (ell_cols, rows * self.K + offs)
+        return self._ell
+
+    @property
+    def ell_cols(self) -> np.ndarray:
+        return self._ell_layout()[0]
+
+    @property
+    def slot_of_pos(self) -> np.ndarray:
+        return self._ell_layout()[1]
 
     def row_of_pos(self) -> np.ndarray:
         """The row of each CSR entry."""

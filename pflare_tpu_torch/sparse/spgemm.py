@@ -1,20 +1,58 @@
-"""Fixed-sparsity sparse products: host plans.
+"""Fixed-sparsity sparse products: host plans and their device execution.
 
 A plan is built once from static patterns (the symbolic half of PETSc's
 MatMatMult, reference: src/AIR_Operators_Setup.F90:960-1033,
 src/Gmres_Poly.F90:777); its numeric execution is a gather, multiply and
 segment sum over the product triples.  Ported from
-``pflare_tpu.sparse.spgemm`` for the host setup and its same-pattern
-re-setup (``execute_host``); the device execution of a plan waits for the
-device re-setup.
+``pflare_tpu.sparse.spgemm``: ``execute_host`` serves the host setup and
+its same-pattern re-setup, ``device_tables`` with ``plan_execute`` and
+``poly_execute`` the device re-setup (``air/device_resetup.py``).  The
+device half works on CSR value vectors, the space the plans index, not
+on ELL slots as the reference's ``execute`` does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+import torch
+import torch.nn.functional as F
 
 from .pattern import SparsityPattern
+
+
+def index_tensor(a, device):
+    """A host index array as an int32 tensor on ``device`` (int64 where
+    its values need it): the device re-setup's tables are index arrays
+    the size of its product triples, so this halves their memory."""
+    a = np.ascontiguousarray(a)
+    wide = a.size and (a.max() >= 2**31 or a.min() < -2**31)
+    return torch.as_tensor(a, dtype=torch.int64 if wide else torch.int32,
+                           device=device)
+
+
+def take(values, index1):
+    """``values[index1 - 1]``, 0 where ``index1`` is 0: the gather form of
+    every static placement of the device re-setup (an index tensor of any
+    shape, 1-based, with 0 for an empty slot)."""
+    return F.pad(values, (1, 0))[index1]
+
+
+def segment_sum(values, out, n_out: int):
+    """Sum of ``values`` into ``n_out`` slots by the index tensor ``out``.
+    It is ``index_add_``: on the CPU a sequential pass in index order (the
+    order the host plans sum in), on a CUDA device atomic adds, whose
+    order, and so the last bits of each sum, change from run to run."""
+    return torch.zeros(n_out, dtype=values.dtype,
+                       device=values.device).index_add_(0, out, values)
+
+
+def plan_execute(tables: dict, a_flat, b_flat, nnz_out: int):
+    """C values in CSR order from A's and B's CSR values (device tensors)
+    by the tables of ``SpGEMMPlan.device_tables``: gather, multiply,
+    segment sum."""
+    return segment_sum(a_flat[tables["a_pos"]] * b_flat[tables["b_pos"]],
+                       tables["out_pos"], nnz_out)
 
 
 def _csr64(A):
@@ -33,9 +71,12 @@ class SpGEMMPlan:
         self.pat_A = pat_A
         self.pat_B = pat_B
         self.pat_C = pat_C
-        self.a_pos = np.asarray(a_pos)
-        self.b_pos = np.asarray(b_pos)
-        self.out_pos = np.asarray(out_pos)
+        # int32 where every position fits (the triples are most of a
+        # reuse-enabled hierarchy's memory), one dtype for the three
+        pos = [np.asarray(a) for a in (a_pos, b_pos, out_pos)]
+        wide = any(a.size and a.max() >= 2**31 for a in pos)
+        self.a_pos, self.b_pos, self.out_pos = (
+            a.astype(np.int64 if wide else np.int32, copy=False) for a in pos)
 
     def execute_host(self, a_data: np.ndarray, b_data: np.ndarray
                      ) -> np.ndarray:
@@ -51,6 +92,18 @@ class SpGEMMPlan:
         prod = a_data[self.a_pos] * b_data[self.b_pos]
         return np.bincount(self.out_pos, weights=prod,
                            minlength=self.pat_C.nnz)
+
+    def device_tables(self, device) -> dict:
+        """The triples as index tensors on ``device``, in triple order
+        (grouped by output row; ``segment_sum`` needs no sorting)."""
+        return {key: index_tensor(getattr(self, key), device)
+                for key in ("a_pos", "b_pos", "out_pos")}
+
+    def execute(self, a_flat, b_flat, tables=None):
+        """C values in CSR order on the device of ``a_flat``."""
+        if tables is None:
+            tables = self.device_tables(a_flat.device)
+        return plan_execute(tables, a_flat, b_flat, self.pat_C.nnz)
 
 
 def build_spgemm_plan(pat_A: SparsityPattern, pat_B: SparsityPattern,
@@ -131,3 +184,37 @@ class FixedSparsityPolyPlan:
                             shape=patS.shape)
         out.sort_indices()
         return out
+
+    def device_tables(self, device) -> dict:
+        """The plan on ``device``: ``inject`` places A's values on S (the
+        injection is injective, so a gather), ``diag`` marks S's diagonal
+        (where the c0 I term lands) and ``step`` is the (X @ A)|_S product
+        plan."""
+        inject = np.zeros(self.pat_S.nnz, dtype=np.int64)
+        inject[self.inject_pos] = np.arange(1, self.pat_A.nnz + 1)
+        diag = np.zeros(self.pat_S.nnz, dtype=bool)
+        diag[self.diag_pos[self.diag_pos >= 0]] = True
+        return {"inject": index_tensor(inject, device),
+                "diag": torch.as_tensor(diag, device=device),
+                "step": self.step_plan.device_tables(device),
+                "nnz_s": self.pat_S.nnz, "order": self.order}
+
+    def execute(self, a_flat, coefficients, tables=None):
+        """p(A) values on S in CSR order, on the device of ``a_flat``."""
+        if tables is None:
+            tables = self.device_tables(a_flat.device)
+        return poly_execute(tables, a_flat, coefficients)
+
+
+def poly_execute(tables: dict, a_flat, coefficients):
+    """p(A) on the plan's S pattern, CSR order, from A's CSR values:
+    ``coefficients`` c0..c_order (a tensor, or floats) by the tables of
+    ``FixedSparsityPolyPlan.device_tables``; every power is restricted
+    onto S, as ``execute_host`` computes it."""
+    a_on_s = take(a_flat, tables["inject"])
+    acc = coefficients[1] * a_on_s
+    power = a_on_s
+    for k in range(2, tables["order"] + 1):
+        power = plan_execute(tables["step"], power, a_flat, tables["nnz_s"])
+        acc = acc + coefficients[k] * power
+    return torch.where(tables["diag"], acc + coefficients[0], acc)

@@ -70,3 +70,22 @@ def device_sync_read(*tensors) -> float:
     if any(t.is_cuda for t in tensors):
         torch.cuda.synchronize()
     return float(sum(float(t.double().sum()) for t in tensors))
+
+
+def count_syncs(fn, *args, **kw):
+    """(``fn(*args, **kw)``, the synchronisations of the host with a CUDA
+    device it made): run under ``torch.cuda.set_sync_debug_mode("warn")``,
+    which warns at each (a read of a device value, a pageable copy, a
+    stream or device synchronise) with the message counted here."""
+    import warnings
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)

@@ -315,3 +315,61 @@ def test_resetup_card_matches_cpu(amount):
     assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0])
     x = res.x.cpu().numpy()
     assert np.linalg.norm(A2 @ x - b) <= 1e-8 * np.linalg.norm(b)
+
+
+_BENCH = dict(a_lump=True, a_drop=1e-5, strong_threshold=0.99, max_levels=6,
+              coarsest_inverse_type="NEWTON", coarsest_poly_order=24,
+              coarsest_matrix_free_polys=True)
+
+
+@pytest.mark.parametrize("kw,syncs", [
+    (_BENCH, 0),
+    (dict(auto_truncate_start_level=2, auto_truncate_tol=0.5,
+          coarsest_poly_order=12), 1),
+    (dict(z_type="LAIR", smooth_order="fcf", max_levels=6), None),
+    (dict(one_point_classical_prolong=False, constrain_w=True,
+          constrain_z=True, coarsest_inverse_type="LU", max_levels=6),
+     None)],
+    ids=["bench", "auto-truncated", "lair-fcf", "constrained-lu"])
+def test_device_resetup_card_matches_cpu(kw, syncs):
+    """``install`` on the card: every rebuilt operator equals the same
+    plan's on the CPU (a twin's own plan, one host hierarchy) within
+    1e-12 of its largest entry in f64, at the bench's depth of 6 levels
+    (the card's atomic sums round otherwise, and the difference grows
+    down the levels: 3e-14 at level 2 to 5.6e-12 at level 7 of the
+    12-level constrained hierarchy, on an H100); the install
+    synchronises only for the truncation probe's read (the SVDs of lAIR
+    and the constraints read a flag each, not counted); the solve
+    converges through the DIA kernel."""
+    from pflare_tpu_torch.utils.timers import count_syncs
+
+    dev = _card()
+    A = tpf.adv_diff_2d(48)
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 0.05 * np.random.default_rng(3)
+                         .standard_normal(A.nnz))
+    opts = tpf.AIROptions().replace(reuse_sparsity=True, reuse_amount=3,
+                                    reuse_poly_coeffs=True, **kw)
+    pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev).setup(A)
+    cpu = pc.on("cpu")
+    plan = pc.build_device_resetup()
+    plan.install(pc, A2)                       # first call: warm-up
+    _, n_sync = count_syncs(plan.install, pc, A2)
+    if syncs is not None:
+        assert n_sync == syncs
+    cpu_plan = cpu.build_device_resetup()
+    cpu_plan.install(cpu, A2)
+    got, want = pc.upload().to_scipy(), cpu.upload().to_scipy()
+    assert got.keys() == want.keys()
+    for name in want:
+        diff = abs(got[name] - want[name]).max()
+        assert diff <= 1e-12 * max(abs(want[name]).max(), 1e-300), name
+    if syncs:
+        assert abs(plan.probe_quality - cpu_plan.probe_quality) <= \
+            1e-12 * cpu_plan.probe_quality
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    tdia.KERNEL_LAUNCHES = 0
+    res = pc.solve(b, side="right", rtol=1e-10, max_it=60)
+    assert tdia.KERNEL_LAUNCHES > 0 and res.converged
+    assert (np.linalg.norm(A2 @ res.x.cpu().numpy() - b)
+            <= 1e-8 * np.linalg.norm(b))

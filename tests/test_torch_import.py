@@ -116,6 +116,14 @@ _SLICE_JOBS = {
         "device='cpu').setup(adv_diff_2d(16))\n"
         "m.compute_stats(pc.hierarchy)\n"
         "pc.solve(np.ones(256), ksp='fgmres', max_it=5)\n"),
+    "pflare_tpu_torch.air.device_resetup": (
+        "from pflare_tpu_torch import PCAIR, AIROptions\n"
+        "A = adv_diff_2d(16)\n"
+        "pc = PCAIR(AIROptions().replace(reuse_sparsity=True, "
+        "reuse_amount=3, z_type='LAIR'), dtype=torch.float64, "
+        "device='cpu').setup(A)\n"
+        "pc.build_device_resetup().install(pc, A * 1.01)\n"
+        "pc.solve(np.ones(256), max_it=5)\n"),
     "pflare_tpu_torch.parallel.repartition": (
         "A = adv_diff_2d(24)\n"
         "p = np.random.default_rng(0).permutation(576)\n"
@@ -153,7 +161,7 @@ def test_slice_module_stands_alone(module):
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
-    if module.endswith(("pcpflareinv", "stats")):
+    if module.endswith(("pcpflareinv", "stats", "device_resetup")):
         assert got["srcs"]            # the setup asked for the host kernels
     pkg = os.path.realpath(os.path.dirname(pflare_tpu_torch.__file__))
     for src in got["srcs"]:
