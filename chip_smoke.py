@@ -104,7 +104,32 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     against its host re-setup + upload, the plan's device bytes and the
     peak device memory, ``solve_device`` with 10 Richardson iterations
     (rtol 1e-5, true residual <= 1e-4, both kernels launched), one
-    install under torch.profiler.
+    install under torch.profiler;
+13. the device first setup (``setup_device``, air/device_setup.py): (a)
+    at 512^2, f64, the bench's options and depth: first and warm setup to
+    completion, the level sizes, the synchronisations by level
+    (``count_syncs``), every operator a DIA or DELL on the card, right
+    GMRES to rtol 1e-10 from x0 = 1 with a zero RHS within 3 iterations
+    of a host setup with the same options, the DIA kernel launched; the
+    same solve after ``setup_device`` with phase 6's configuration (full
+    depth) within 3 iterations of phase 6's; the bench setup at 256^2 on
+    the card and on the CPU, held level by level
+    (``pflare_tpu_torch/air/setup_compare.py::compare_setups``: markers
+    equal, operators and inverses applied to a probe within 1e-12 of
+    their largest entry, the polynomial coefficients reported; it stops
+    at a decision the two take on a rounding tie and names it), residual
+    histories within
+    phase 10's rule unless a tie parted them; the same on the
+    curved-velocity sibling at 256^2, which has no tie, so card and CPU
+    must agree on every level; the option sweep
+    ``PHASE13_SETS`` at 64^2, card against CPU; (b) at 2048^2, f32, the
+    phase-7 options: first and warm setup to completion against phase
+    7's host setup + upload, the peak device memory, the
+    synchronisations by level, the level sizes against phase 7's (levels
+    within 1, level-0 F fraction within 0.1: the reference's rule),
+    ``solve_device`` with 10 Richardson iterations and the counters at 0
+    (true residual <= 1e-4, the DIA kernel launched), one setup under
+    torch.profiler.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -563,6 +588,7 @@ def main() -> int:
         require(res.converged and res.iterations <= 6 and true64 <= 1e-8,
                 f"f64 parity configuration, {path} GMRES: did not converge "
                 "in 6 iterations")
+    host512 = paths64["stationary"][0].iterations
     h, h_eager = (paths64[p][0].history for p in ("stationary", "eager"))
     require(len(h) == len(h_eager) and np.all(
         np.abs(h - h_eager) <= HISTORY_RTOL * h_eager
@@ -611,6 +637,9 @@ def main() -> int:
             "2048^2 Richardson did not converge")
     require(launches2k["dia"] > 0 and launches2k["banded"] > 0,
             f"a kernel of the 2048^2 path was not launched: {launches2k}")
+    host2k = {"setup": t_setup2k, "upload": t_upload2k,
+              "n_levels": pc2k.n_levels,
+              "levels": [(lv.n, len(lv.fine)) for lv in pc2k.hierarchy.levels]}
 
     # right GMRES to rtol 1e-5 by both GMRES paths
     paths2k = gmres_paths(pc2k, b2k, rtol=1e-5, side="right")
@@ -691,6 +720,11 @@ def main() -> int:
     del handoff
     print(f"# phase 12: {t_phase12:.3f} s")
 
+    # ~~~~~~~~~~ 13. device first setup ~~~~~~~~~~
+    setup_runs, t_phase13 = phase13(np, sp, torch, tpf, tdia, tbanded, dev,
+                                    A512, A2k, host512, host2k)
+    print(f"# phase 13: {t_phase13:.3f} s")
+
     kernels = []
     for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
                               ("padded", "dia", DIA_SITES["padded"]),
@@ -729,7 +763,8 @@ def main() -> int:
                      for label, run in runs.items()}
                for key, runs in (("gmres_2048", gmres_runs),
                                  ("reuse", reuse_runs),
-                                 ("device_resetup", resetup_runs))},
+                                 ("device_resetup", resetup_runs),
+                                 ("device_setup", setup_runs))},
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1618,6 +1653,296 @@ def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, handoff):
     print(f"# phase 12 (a) {t_a:.3f} s, (b) "
           f"{time.perf_counter() - t_phase - t_a:.3f} s")
     del pc, plan, x
+    return runs, time.perf_counter() - t_phase
+
+
+# (label, options, input) of phase 13's option sweep at 64^2, card against
+# CPU: the reference's device configurations
+# (tests/test_device_setup.py:176-206, 289-320)
+PHASE13_SETS = (
+    ("PMIS", dict(cf_splitting_type="PMIS", max_levels=5), "scipy"),
+    ("PMIS_DIST2", dict(cf_splitting_type="PMIS_DIST2", max_levels=5),
+     "scipy"),
+    ("CR", dict(cf_splitting_type="CR", strong_threshold=0.5, max_levels=4),
+     "scipy"),
+    ("lAIR", dict(z_type="LAIR", a_drop=1e-4, max_levels=4), "scipy"),
+    ("SAI-lAIR", dict(z_type="LAIR_SAI", a_drop=1e-4, max_levels=4),
+     "scipy"),
+    ("strong R", dict(strong_r_threshold=0.01, a_drop=1e-4, max_levels=4),
+     "scipy"),
+    ("improve_z", dict(improve_z_its=2, a_drop=1e-4, max_levels=4), "scipy"),
+    ("auto-truncated", dict(max_levels=10, auto_truncate_start_level=3,
+                            auto_truncate_tol=0.5,
+                            coarsest_inverse_type="NEWTON",
+                            coarsest_poly_order=12,
+                            coarsest_matrix_free_polys=True), "scipy"),
+    ("DELL input", dict(max_levels=4), "DELL"),
+)
+
+
+def phase13(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512,
+            host2k):
+    """The device first setup on the card (see the module docstring,
+    phase 13).  ``host512``: phase 6's right-GMRES iterations; ``host2k``:
+    phase 7's host setup and upload seconds and level sizes.  Returns the
+    runs ({label: {"launches", "iterations"}}) and the phase's seconds."""
+    from pflare_tpu_torch.air.setup_compare import (LevelMatrices,
+                                                    compare_setups,
+                                                    setup_levels)
+    from pflare_tpu_torch.sparse import DELL, DIA
+    from pflare_tpu_torch.utils.timers import count_syncs, device_sync_read
+
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+
+    def zero_counts():
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+
+    def timed_setup(pc, A):
+        t0 = time.perf_counter()
+        pc.setup_device(A)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def on_card(pc):
+        """Every operator of the device-built solve form lies on the card
+        as a DIA or DELL: no host CSR, no upload."""
+        dh = pc.upload()
+        ops = [dh.top, dh.coarse_inv.mat] + [
+            op for lev in dh.levels for op in lev.values()
+            if not isinstance(op, torch.Tensor)]
+        ops += [lev["inv_Aff"].mat for lev in dh.levels]
+        for op in ops:
+            if op is None or isinstance(op, torch.Tensor):
+                continue
+            if hasattr(op, "kind"):       # the level's Inverse
+                op = op.mat if op.kind != "diagonal" else None
+                if op is None:
+                    continue
+            require(isinstance(op, (DIA, DELL)) and op.data.is_cuda,
+                    f"a device-built operator is a {type(op).__name__} on "
+                    f"{getattr(op.data, 'device', '?')}")
+        return dh
+
+    def syncs_by_level(pc, A):
+        _, total = count_syncs(pc.setup_device, A)
+        h = pc.hierarchy
+        return [lvl.syncs for lvl in h.levels] + [h.coarse_syncs], total
+
+    runs = {}
+    # (a) 512^2, f64, the bench's options and depth
+    opts = bench_options(tpf)
+    pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev)
+    t_first = timed_setup(pc, A512)
+    t_warm = timed_setup(pc, A512)
+    per_level, total = syncs_by_level(pc, A512)
+    h = pc.hierarchy
+    on_card(pc)
+    print(f"# 512^2 f64 setup_device: {t_first:.3f} s first / {t_warm:.3f} s "
+          f"warm to completion, {h.n_levels} levels, (n, n_f, n_c) "
+          f"{[(lv.n, lv.n_f, lv.n_c) for lv in h.levels]}, coarse "
+          f"{h.coarse_A.shape[0]} rows; synchronisations {total} (by level "
+          f"{per_level}, the last the coarse inverse and layouts)")
+    n = A512.shape[0]
+    kw = dict(x0=np.ones(n), rtol=1e-10, atol=1e-50, max_it=60, side="right")
+    host = tpf.PCAIR(opts, dtype=torch.float64, device=dev).setup(A512)
+    hres = host.solve(np.zeros(n), **kw)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = pc.solve(np.zeros(n), **kw)
+    device_sync_read(res.x)
+    t_solve = time.perf_counter() - t0
+    launches = counts()
+    true = float(np.linalg.norm(A512 @ res.x.cpu().numpy())
+                 / np.linalg.norm(A512 @ np.ones(n)))
+    print(f"# 512^2 f64 setup_device parity solve: right GMRES "
+          f"{res.iterations} its (host setup, same options: "
+          f"{hres.iterations}; phase 6, full depth: {host512}), "
+          f"||Ax||/||A1|| {true:.3e}, {t_solve:.4f} s, launches {launches}, "
+          f"DIA {launches['dia'] / max(res.iterations, 1):.2f} an iteration")
+    require(res.converged and res.iterations <= hres.iterations + 3,
+            f"512^2 setup_device: {res.iterations} right GMRES its against "
+            f"{hres.iterations} (host, same options)")
+    require(launches["dia"] > 0, "512^2 setup_device: no DIA launch")
+    runs["512 setup_device gmres"] = {"launches": launches,
+                                      "iterations": res.iterations}
+    del pc, host, h
+    # phase 6's configuration (full depth), against phase 6's host setup
+    pc = tpf.PCAIR(tpf.AIROptions(a_lump=True, a_drop=1e-5,
+                                  strong_threshold=0.99),
+                   dtype=torch.float64, device=dev)
+    t_full = timed_setup(pc, A512)
+    zero_counts()
+    res = pc.solve(np.zeros(n), **kw)
+    launches = counts()
+    true = float(np.linalg.norm(A512 @ res.x.cpu().numpy())
+                 / np.linalg.norm(A512 @ np.ones(n)))
+    print(f"# 512^2 f64 setup_device, phase 6's configuration: "
+          f"{pc.n_levels} levels, setup {t_full:.3f} s to completion, right "
+          f"GMRES {res.iterations} its (phase 6's host setup: {host512}), "
+          f"||Ax||/||A1|| {true:.3e}, launches {launches}")
+    require(res.converged and res.iterations <= host512 + 3
+            and true <= 1e-8, f"512^2 setup_device, phase 6's "
+            f"configuration: {res.iterations} its against {host512}")
+    runs["512 setup_device parity"] = {"launches": launches,
+                                       "iterations": res.iterations}
+    del pc
+
+    # card against CPU, 256^2 f64, and the option sweep at 64^2
+    def card_and_cpu(label, A, o, make_input=None):
+        inp = A if make_input is None else make_input(A)
+        with LevelMatrices() as seen_card:
+            pcd = tpf.PCAIR(o, dtype=torch.float64, device=dev)
+            pcd.setup_device(inp if make_input is None else inp.to(dev))
+        with LevelMatrices() as seen_cpu:
+            pcc = tpf.PCAIR(o, dtype=torch.float64, device="cpu")
+            pcc.setup_device(inp)
+        on_card(pcd)
+        try:
+            notes, diverged, worst, coeff = compare_setups(
+                setup_levels(pcd.hierarchy), setup_levels(pcc.hierarchy),
+                seen_card, seen_cpu, o, rtol=1e-12, coeff_rtol=None)
+        except AssertionError as e:
+            raise RuntimeError(f"{label}: card against CPU: {e}") from e
+        notes.append(("polynomial coefficients within", f"{coeff:.3e}"))
+        return pcd, pcc, notes, diverged, worst
+
+    A256 = tpf.adv_diff_2d(256)
+    pcd, pcc, notes, diverged, worst = card_and_cpu("256^2", A256, opts)
+    b = np.random.default_rng(0).standard_normal(A256.shape[0])
+    kw256 = dict(side="right", rtol=1e-10, atol=1e-50, max_it=60)
+    zero_counts()
+    rd = pcd.solve(b, **kw256)
+    launches = counts()
+    rc = pcc.solve(b, **kw256)
+    hd, hc = rd.history, rc.history
+    same_hist = len(hd) == len(hc) and bool(np.all(
+        np.abs(hd - hc) <= HISTORY_RTOL * hc + HISTORY_FLOOR * hc[0]))
+    print(f"# 256^2 f64 setup_device card against CPU: {pcd.n_levels} / "
+          f"{pcc.n_levels} levels, markers and operators "
+          + ("equal up to a tie" if diverged else "equal on every level")
+          + ": " + "; ".join(f"{k}: {v}" for k, v in notes)
+          + f", operators within {worst:.3e} of their largest entry; right "
+          f"GMRES {rd.iterations} / {rc.iterations} its, histories "
+          + ("within phase 10's rule" if same_hist else "differ")
+          + f"; launches {launches}")
+    require(worst <= 1e-12, f"256^2 card against CPU: {worst:.3e}")
+    require(same_hist or diverged, "256^2 setup_device: card and CPU "
+            "histories differ on equal hierarchies")
+    require(rd.converged and launches["dia"] > 0,
+            "256^2 setup_device: the card's solve")
+    runs["256 setup_device gmres"] = {"launches": launches,
+                                      "iterations": rd.iterations}
+    del pcd, pcc
+    # the curved-velocity sibling puts no entry on a decision's edge:
+    # card and CPU must agree on every level
+    pcd, pcc, notes, diverged, worst = card_and_cpu(
+        "256^2 curved", tpf.adv_diff_2d(256, curved_velocity=True), opts)
+    print(f"# 256^2 curved f64 setup_device card against CPU: "
+          f"{pcd.n_levels} / {pcc.n_levels} levels, "
+          + ("parted at a tie" if diverged else "equal on every level")
+          + ": " + "; ".join(f"{k}: {v}" for k, v in notes)
+          + f", operators within {worst:.3e} of their largest entry")
+    require(not diverged and pcd.n_levels == pcc.n_levels,
+            "256^2 curved setup_device: card and CPU parted")
+    del pcd, pcc
+    A64 = tpf.adv_diff_2d(64)
+    for label, kw_set, kind in PHASE13_SETS:
+        o = tpf.AIROptions().replace(**kw_set)
+        make = None
+        if kind == "DELL":
+            make = lambda A: DELL.from_scipy(A, dtype=torch.float64,
+                                             device="cpu")
+        pcd, pcc, notes, diverged, worst = card_and_cpu(label, A64, o, make)
+        res = pcd.solve(np.ones(A64.shape[0]), side="right", rtol=1e-8,
+                        max_it=60)
+        print(f"# 64^2 f64 setup_device {label}: {pcd.n_levels} levels"
+              + (" (auto-truncated)" if pcd.hierarchy.auto_truncated else "")
+              + ", card against CPU "
+              + ("equal up to a tie" if diverged else "equal on every level")
+              + ": " + "; ".join(f"{k}: {v}" for k, v in notes)
+              + f", within {worst:.3e}; right GMRES {res.iterations} its")
+        require(res.converged, f"64^2 setup_device {label}: no convergence")
+        if kind == "DELL":
+            ref = tpf.PCAIR(o, dtype=torch.float64, device=dev)
+            ref.setup_device(A64)
+            got, want = pcd.upload().to_scipy(), ref.upload().to_scipy()
+            require(got.keys() == want.keys() and all(
+                abs(got[k] - want[k]).max() == 0 for k in want),
+                "64^2 setup_device: a DELL input differs from its matrix")
+    del pcd, pcc
+    t_a = time.perf_counter() - t_phase
+
+    # (b) 2048^2, f32, the phase-7 options
+    opts2k = bench_options(tpf, max_levels=10)
+    pc = tpf.PCAIR(opts2k, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t_first = timed_setup(pc, A2k)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    t_warm = timed_setup(pc, A2k)
+    per_level, total = syncs_by_level(pc, A2k)
+    h = pc.hierarchy
+    on_card(pc)
+    f_dev = h.levels[0].n_f / h.levels[0].n
+    f_host = host2k["levels"][0][1] / host2k["levels"][0][0]
+    print(f"# 2048^2 f32 setup_device: {t_first:.3f} s first / "
+          f"{t_warm:.3f} s warm to completion, against "
+          f"phase 7's host setup {host2k['setup']:.3f} s + upload "
+          f"{host2k['upload']:.3f} s; peak device memory {peak / 1e9:.3f} GB "
+          f"above the {mem0 / 1e9:.3f} GB held; synchronisations {total} "
+          f"(by level {per_level}); {h.n_levels} levels (host "
+          f"{host2k['n_levels']}), (n, n_f) device "
+          f"{[(lv.n, lv.n_f) for lv in h.levels]} host {host2k['levels']}; "
+          f"level-0 F fraction {f_dev:.4f} (host {f_host:.4f}); {host_gib()}")
+    require(abs(h.n_levels - host2k["n_levels"]) <= 1
+            and abs(f_dev - f_host) < 0.1, "2048^2 setup_device: level "
+            "sizes outside the reference's rule (levels +-1, F fraction "
+            "within 0.1)")
+    b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
+    zero_counts()
+    t0 = time.perf_counter()
+    x, norms = pc.solve_device(b2k, max_it=10, ksp="richardson")
+    device_sync_read(x, norms)
+    t_solve = time.perf_counter() - t0
+    launches = counts()
+    norms = norms.cpu().numpy()
+    its = _converged_at(np, norms, 1e-5)
+    true = float(np.linalg.norm(A2k @ x.double().cpu().numpy() - b2k)
+                 / np.linalg.norm(b2k))
+    print(f"# 2048^2 f32 setup_device solve_device: 10 Richardson its "
+          f"{t_solve:.4f} s, rtol 1e-5 at iteration {its}, true residual "
+          f"{true:.3e}, launches {launches} (DIA {launches['dia'] / 10:.1f}, "
+          f"banded {launches['banded'] / 10:.1f} an iteration), relative "
+          f"norms {np.array2string(norms / norms[0], precision=3)}")
+    require(np.isfinite(norms).all() and true <= 1e-4,
+            f"2048^2 setup_device: true residual {true:.3e} after 10 its")
+    require(launches["dia"] > 0, "2048^2 setup_device: no DIA launch")
+    runs["2048 setup_device richardson"] = {"launches": launches,
+                                            "iterations": 10}
+
+    # one warm setup_device under the profiler, device activity alone
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_prof = timed_setup(pc, A2k)
+    busy_us, ops = 0.0, []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            busy_us += evt.self_device_time_total
+            ops.append((evt.self_device_time_total, evt.count, evt.key))
+    ops.sort(reverse=True)
+    print(f"# 2048^2 f32 profiled setup_device: wall {t_prof:.4f} s, device "
+          f"busy {busy_us / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / 1e6 / t_prof:.1%}; top device ops: " + "; ".join(
+              f"{key[:60]} {t / 1e3:.3f} ms in {c}" for t, c, key in ops[:8]))
+    print(f"# phase 13 (a) {t_a:.3f} s, (b) "
+          f"{time.perf_counter() - t_phase - t_a:.3f} s")
+    del pc, h, x
     return runs, time.perf_counter() - t_phase
 
 

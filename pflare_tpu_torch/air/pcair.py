@@ -16,6 +16,7 @@ bandwidth-reducing order and every vector comes back in the caller's.
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 import scipy.sparse as sp
@@ -88,6 +89,10 @@ class PCAIR:
 
         if self.hierarchy is None:
             raise RuntimeError("PCAIR not set up")
+        if not isinstance(self.hierarchy, Hierarchy):
+            raise ValueError("build_device_resetup needs a host setup: a "
+                             "device-built hierarchy keeps no host "
+                             "patterns to plan on")
         return DeviceResetup(
             self.hierarchy, dtype=self.dtype, device=self.device,
             perm=None if self._perm is None else self._perm.cpu().numpy())
@@ -116,6 +121,11 @@ class PCAIR:
         if (structure == "same" and self.hierarchy is not None
                 and self.options.reuse_sparsity):
             previous = self.hierarchy
+            if not isinstance(previous, Hierarchy):
+                raise ValueError(
+                    "setup(A, 'same') after setup_device: a device-built "
+                    "hierarchy keeps no host CF splitting or patterns to "
+                    "reuse; call setup(A) or setup_device(A)")
         with timer("air_setup"):
             self.hierarchy = setup_hierarchy(
                 A, self.options, previous=previous,
@@ -125,6 +135,53 @@ class PCAIR:
         if self.options.print_stats_timings:
             print_stats(self.hierarchy)
             print_timers()
+        return self
+
+    def setup_device(self, A, dtype=None):
+        """Build the hierarchy on this PCAIR's device, pattern discovery
+        included (air/device_setup.py; the reference's Kokkos setup for
+        device-resident matrices, docs/gpus.md): every O(nnz) step runs
+        as torch ops there, in ``dtype`` (default: this PCAIR's dtype,
+        which becomes the solve's).  ``A``: a scipy matrix (reordered as
+        ``reorder`` asks) or a ``DELL`` already on the device (then
+        ``reorder`` must be "none").  The solve form is stored, so
+        ``upload`` copies nothing.  Outside the device envelope this
+        prints the reason to stderr and runs the host ``setup``, whose
+        hierarchy is uploaded as usual (the reference's rule,
+        pflare_tpu/air/pcair.py:187-223); so it does where the
+        reference's device path would build another preconditioner than
+        its host setup (``device_setup_fault_reason``)."""
+        from ..sparse.dell import DELL
+        from .device_setup import (device_setup_fault_reason,
+                                   device_setup_unsupported_reason,
+                                   setup_hierarchy_device)
+
+        if self._frozen and self.hierarchy is not None:
+            return self
+        if dtype is not None:
+            self.dtype = dtype
+        reason = (device_setup_unsupported_reason(self.options)
+                  or device_setup_fault_reason(self.options))
+        if reason is not None:
+            print("# setup_device: option(s) outside the device envelope, "
+                  f"using the host setup: {reason}", file=sys.stderr)
+            return self.setup(A)
+        if isinstance(A, DELL):
+            if self.options.reorder != "none":
+                raise ValueError(
+                    "setup_device(DELL) cannot reorder; pass a scipy "
+                    "matrix or set reorder='none'")
+            if A.device.type != self.device.type:
+                raise ValueError(f"setup_device: the DELL lies on "
+                                 f"{A.device}, this PCAIR solves on "
+                                 f"{self.device}")
+            self._perm = self._iperm = None
+        else:
+            A = self._apply_reorder(sp.csr_matrix(A))
+        with timer("air_setup"):
+            self.hierarchy = setup_hierarchy_device(
+                A, self.options, dtype=self.dtype, device=self.device)
+        self._device_hierarchy = self.hierarchy.solve_form
         return self
 
     def on(self, device) -> "PCAIR":

@@ -44,6 +44,9 @@ def compute_stats(hierarchy) -> dict:
                 "operator_complexity": 1.0, "cycle_complexity": 1.0,
                 "storage_complexity": 1.0, "reuse_storage_complexity": 0.0}
 
+    if not hasattr(levels[0], "A"):
+        raise ValueError("stats need the host matrices of a host setup; a "
+                         "device-built hierarchy has none")
     n_fine = levels[0].n
     nnz_fine = levels[0].A.nnz
     cm = hierarchy.coarse_matrix

@@ -6,7 +6,8 @@ carried across").
 from plain arrays -- for instance those of a preconditioner set up by the
 JAX reference and read back from it -- so the two solves can be held
 against each other on the very same operators, independent of either
-setup.
+setup.  ``dell_from_numpy`` does the same for a padded device matrix
+(the device setup's ``DELL``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .air.hierarchy import DeviceHierarchy
 from .inverse.build import Inverse
 from .inverse.newton import build_newton_program
 from .params import tolerances
+from .sparse.dell import DELL
 from .sparse.dtypes import numpy_dtype
 
 _INVERSE_KINDS = ("diagonal", "assembled", "dense", "poly_mf", "newton_mf",
@@ -96,3 +98,15 @@ def hierarchy_from_numpy(levels, coarse_inverse: dict, dtype, device,
               else make_op(sp.csr_matrix(top), dtype).to(device))
     return DeviceHierarchy(out, inverse_from_numpy(coarse_inverse, dtype,
                                                    device), top_op)
+
+
+def dell_from_numpy(data, cols, n_cols: int, dtype=None,
+                    device="cuda") -> DELL:
+    """This package's ``DELL`` from the arrays of a padded device matrix
+    (``data``/``cols`` ``[n, K]``, dead slots (0, 2**30), live columns
+    sorted): for instance a JAX ``DELL``'s, read back with numpy, so that
+    both packages' device setups start from the same matrices.  ``dtype``
+    defaults to that of ``data``."""
+    return DELL(torch.tensor(np.asarray(data), dtype=dtype, device=device),
+                torch.tensor(np.asarray(cols), dtype=torch.int32,
+                             device=device), int(n_cols))

@@ -24,7 +24,8 @@ import torch
 from ..params import InverseType, tolerances
 from ..sparse import ELL, SparsityPattern
 from ..sparse.spgemm import FixedSparsityPolyPlan
-from .gmres_poly import coefficients_arnoldi, coefficients_power, horner
+from .gmres_poly import (coefficients_arnoldi, coefficients_power, horner,
+                         trim_high_order_zeros)
 from .newton import (build_newton_program, newton_apply, newton_residual_apply,
                      newton_roots)
 from .sai import sai_inverse
@@ -244,16 +245,6 @@ def build_inverse(A_scipy: sp.csr_matrix, inverse_type: InverseType,
                        diag=d_np, scaled=diag_scale, mat_src=A)
     return _assemble_poly(A, coeffs, sparsity_order, diag_scale, d_np,
                           poly_plan)
-
-
-def trim_high_order_zeros(coeffs: np.ndarray) -> np.ndarray:
-    """Drop exactly-zero high-order coefficients (early Arnoldi termination)
-    so the matrix-free applier skips their matvecs (reference:
-    src/Gmres_Poly.F90:90-135)."""
-    nz = np.nonzero(coeffs)[0]
-    if len(nz) == 0:
-        return coeffs[:1]
-    return coeffs[: nz[-1] + 1]
 
 
 def _diag_scaled(A, d_np):

@@ -137,13 +137,19 @@ def compute_extra_roots(real_roots, imag_roots, tol_zero):
     return np.asarray(out_r), np.asarray(out_i)
 
 
-def newton_roots(matvec, n, poly_order, dtype, add_roots=True, seed: int = 17):
+def newton_roots(matvec, n, poly_order, dtype, add_roots=True, seed: int = 17,
+                 precomputed=None):
     """Harmonic Ritz values in modified-Leja order (reference:
     src/Gmres_Poly_Newton.F90:379-712).  Returns (real, imag) arrays.
-    ``matvec`` is a host (scipy) product: the Arnoldi runs on the host."""
+    ``matvec`` is a host (scipy) product: the Arnoldi runs on the host,
+    unless ``precomputed`` gives its (beta, H, m), as the device setup
+    does from ``gmres_poly.arnoldi_fixed_device``."""
     tol = tolerances(dtype)
-    beta, H, m, _, _ = arnoldi_host(matvec, n, poly_order, dtype, tol.lucky,
-                                    seed=seed)
+    if precomputed is not None:
+        beta, H, m = precomputed
+    else:
+        beta, H, m, _, _ = arnoldi_host(matvec, n, poly_order, dtype,
+                                        tol.lucky, seed=seed)
     d = poly_order + 1
     # Harmonic Ritz: H_sq + f e_d^T with f = H[d,d-1]^2 * (H_sq^-T e_d)
     H_sq = H[:d, :d].copy()

@@ -72,20 +72,36 @@ def device_sync_read(*tensors) -> float:
     return float(sum(float(t.double().sum()) for t in tensors))
 
 
+_SYNC_LOGS: list = []   # the warning lists of the active count_syncs
+
+
+def _syncs_in(caught) -> int:
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
 def count_syncs(fn, *args, **kw):
     """(``fn(*args, **kw)``, the synchronisations of the host with a CUDA
     device it made): run under ``torch.cuda.set_sync_debug_mode("warn")``,
     which warns at each (a read of a device value, a pageable copy, a
-    stream or device synchronise) with the message counted here."""
+    stream or device synchronise) with the message counted here.  Inside
+    ``fn``, ``current_syncs`` reads the count so far."""
     import warnings
 
     prev = torch.cuda.get_sync_debug_mode()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
+        _SYNC_LOGS.append(caught)
         try:
             out = fn(*args, **kw)
         finally:
+            _SYNC_LOGS.pop()
             torch.cuda.set_sync_debug_mode(prev)
-    return out, sum("called a synchronizing CUDA operation" in str(w.message)
-                    for w in caught)
+    return out, _syncs_in(caught)
+
+
+def current_syncs():
+    """The synchronisations counted so far by the innermost active
+    ``count_syncs``, or None outside one."""
+    return _syncs_in(_SYNC_LOGS[-1]) if _SYNC_LOGS else None

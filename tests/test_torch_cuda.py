@@ -373,3 +373,45 @@ def test_device_resetup_card_matches_cpu(kw, syncs):
     assert tdia.KERNEL_LAUNCHES > 0 and res.converged
     assert (np.linalg.norm(A2 @ res.x.cpu().numpy() - b)
             <= 1e-8 * np.linalg.norm(b))
+
+
+def test_setup_device_card_matches_cpu():
+    """``setup_device`` on the card against the same on the CPU, at 48^2
+    in f64 with the bench's options: markers equal and every operator
+    within 1e-12 of its largest entry (inverses applied to a probe too),
+    level by level, up to a decision both sides take on a tie (their
+    sums round otherwise; ``air/setup_compare.py::compare_setups``
+    checks it is one); no level holds a host matrix; the solve converges
+    through the DIA kernel."""
+    from pflare_tpu_torch.air.device_setup import DeviceSetupHierarchy
+    from pflare_tpu_torch.sparse import DELL
+    from pflare_tpu_torch.air.setup_compare import (
+        LevelMatrices, compare_setups, setup_levels)
+
+    dev = _card()
+    A = tpf.adv_diff_2d(48)
+    opts = tpf.AIROptions().replace(**_BENCH)
+    with LevelMatrices() as seen_card:
+        pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev)
+        pc.setup_device(A)
+    with LevelMatrices() as seen_cpu:
+        cpu = tpf.PCAIR(opts, dtype=torch.float64, device="cpu")
+        cpu.setup_device(A)
+    assert isinstance(pc.hierarchy, DeviceSetupHierarchy)
+    dh = pc.upload()
+    for lev in dh.levels:
+        for key, op in lev.items():
+            if isinstance(op, (DIA, DELL)):
+                assert op.data.is_cuda, key
+    notes, diverged, worst, _ = compare_setups(
+        setup_levels(pc.hierarchy), setup_levels(cpu.hierarchy), seen_card,
+        seen_cpu, opts, rtol=1e-12, coeff_rtol=None)
+    assert worst <= 1e-12
+    assert isinstance(dh.top, DIA) and isinstance(dh.levels[0]["A_ff"], DIA)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    tdia.KERNEL_LAUNCHES = 0
+    res = pc.solve(b, side="right", rtol=1e-10, max_it=60)
+    assert tdia.KERNEL_LAUNCHES > 0 and res.converged
+    if not diverged:
+        assert res.iterations == cpu.solve(b, side="right", rtol=1e-10,
+                                           max_it=60).iterations

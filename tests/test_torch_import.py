@@ -36,6 +36,25 @@ def test_import_leaves_jax_out():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("module", ["sparse.dell", "cf.device",
+                                    "air.device_setup",
+                                    "air.setup_compare"])
+def test_device_setup_modules_stand_alone(module):
+    """The device first setup's modules import neither jax nor
+    pflare_tpu, each on its own."""
+    code = (
+        "import json, importlib, sys\n"
+        f"importlib.import_module('pflare_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pflare_tpu')]\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_compiled_sources_lie_inside_the_port():
     """Every source the port compiles or opens at runtime is its own: the
     host C++ kernels and the CUDA sources, none of the JAX package's."""
