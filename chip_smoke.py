@@ -65,13 +65,13 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     iteration, the DIA kernel launched in every run but the RCM one and
     the banded kernel in that one; ``compute_diag_dom_submatrix`` on the
     512^2 matrix; the DIA kernel against its plain version on the
-    adv_diff_3d(64) top A, which ``measure`` also times; (b) at 2048^2,
-    f32, 10 levels, the phase-7 options with lAIR, strong-R dropping and
-    fcf smoothing: solve_device with max_it=10, Richardson and right
-    GMRES, each with the launch counters at 0 before it, more DIA
-    launches a Richardson iteration than phase 7, the true residual by
-    scipy within 10% of the reported one, then one more Richardson solve
-    under torch.profiler;
+    adv_diff_3d(64) top A, which ``measure`` also times; (b) at 1024^2
+    (``Abig``), f32, 10 levels, the phase-7 options with lAIR, strong-R
+    dropping and fcf smoothing: solve_device with max_it=10, Richardson
+    and right GMRES, each with the launch counters at 0 before it, more
+    DIA launches a Richardson iteration than phase 7, the true residual
+    by scipy within 10% of the reported one, then one more Richardson
+    solve under torch.profiler;
 11. same-pattern re-setup: (a) at 512^2, f64, the bench's options and
     depth with ``reuse_sparsity``: every ``reuse_amount`` with and
     without ``reuse_poly_coeffs`` (``PHASE11_SETS``), the generic reuse
@@ -80,7 +80,7 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     history to 1e-12) and ``freeze``; each set up on A512, re-set up on
     its seeded perturbation (``setup(A2, "same")``) and solved by right
     GMRES to rtol 1e-10 on the card and on a CPU twin made after the
-    re-setup (phase 10's rule, the DIA kernel launched); (b) at 2048^2,
+    re-setup (phase 10's rule, the DIA kernel launched); (b) at 1024^2,
     the phase-7 options with ``reuse_amount=3`` (so that phase 12 (b)
     shares the first setup), set up from the f64 matrix for an f32 solve
     (the plan re-setup computes in f64, as the reference's does), re-set
@@ -99,7 +99,7 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     (its own plan, the same install) within phase 10's rule; three
     installs on drifting seeded matrices, each converging with its true
     residual by scipy; the plan alone card against CPU (1e-12) on
-    ``PHASE12_SETS`` at 128^2; (b) at 2048^2, f32, phase 11 (b)'s
+    ``PHASE12_SETS`` at 128^2; (b) at 1024^2, f32, phase 11 (b)'s
     PCAIR: plan build, first and warm install of phase 11's matrix
     against its host re-setup + upload, the plan's device bytes and the
     peak device memory, ``solve_device`` with 10 Richardson iterations
@@ -129,7 +129,34 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     within 1, level-0 F fraction within 0.1: the reference's rule),
     ``solve_device`` with 10 Richardson iterations and the counters at 0
     (true residual <= 1e-4, the DIA kernel launched), one setup under
-    torch.profiler.
+    torch.profiler;
+14. unstructured meshes: (a) a jittered Delaunay mesh of 2 x 1024^2
+    triangles in a scrambled cell order, written as Gmsh 4.1 ASCII,
+    read back by ``read_gmsh`` (equal to the mesh written) and assembled
+    by ``fv_upwind_advection``; PCAIR with ``a_lump`` and
+    ``reorder="auto"`` in f32: host setup + upload (which compacts the
+    host hierarchy: ``stats()`` equal before and after, the released
+    bytes printed) and ``setup_device``, each timed to completion with
+    every level's size and containers, each solved by Richardson to
+    rtol 1e-5 (cap 30) with the counters at 0 and then profiled over 10
+    Richardson iterations (``profile_solve``): the true residual by
+    scipy <= 1e-4, and on the host-built hierarchy the top A banded and
+    the banded kernel launched at least once an iteration; the banded
+    kernel against its plain version on that top A, which ``measure``
+    also times; (b) the same for ``dg1_upwind_advection`` on 2 x 512^2
+    triangles with ``reorder="auto"``, where the solve that must
+    converge is right GMRES (its V-cycle diverges as a stationary
+    iteration at this size; a Richardson run is printed for the
+    record); (d) (b)'s matrix and RHS written in PETSc binary and read
+    back bit for bit by ``read_petsc_matrix``, then PCPFLAREINV
+    (default, GMRES, 30 its: the residual falls) and PCAIR
+    (``setup_device``, right GMRES as in (b)) on what was read; (c)
+    ``PHASE14_SETS``: the option sets of tests/test_mesh.py on generated
+    meshes of 10-50k DoF (FV, DG(1) straight and curved, SUPG with
+    diagonally scaled polynomials and diffusion; triangles, tets and a
+    twisted-annulus hex mesh) in f64, card against its CPU twin
+    (``PCAIR.on`` before the upload): residual histories within phase
+    10's rule, the iterations beside the reference's caps.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -703,27 +730,37 @@ def main() -> int:
     print(f"# phase 9: {t_phase9:.3f} s")
 
     # ~~~~~~~~~~ 10. the AIR options ~~~~~~~~~~
+    # Phases 10 (b), 11 (b) and 12 (b) run at 1024^2: their 2048^2 host
+    # setups took most of the command's time limit and swung between calls
     del pc2k, dh2k, x2k, ops2k, dia_2k
+    A1k = tpf.adv_diff_2d(1024)
     options_runs, t_phase10 = phase10(
-        np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure, timed,
+        np, sp, torch, tpf, tdia, tbanded, dev, A1k, check, measure, timed,
         profile_solve, setup_breakdown, launches2k["dia"] / 10)
     print(f"# phase 10: {t_phase10:.3f} s")
 
     # ~~~~~~~~~~ 11. same-pattern re-setup ~~~~~~~~~~
     reuse_runs, t_phase11, handoff = phase11(
-        np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, setup_breakdown)
+        np, sp, torch, tpf, tdia, tbanded, dev, A512, A1k, setup_breakdown)
     print(f"# phase 11: {t_phase11:.3f} s")
 
     # ~~~~~~~~~~ 12. device re-setup ~~~~~~~~~~
     resetup_runs, t_phase12 = phase12(np, sp, torch, tpf, tdia, tbanded,
-                                      dev, A512, A2k, handoff)
-    del handoff
+                                      dev, A512, A1k, handoff)
+    del handoff, A1k
     print(f"# phase 12: {t_phase12:.3f} s")
 
     # ~~~~~~~~~~ 13. device first setup ~~~~~~~~~~
     setup_runs, t_phase13 = phase13(np, sp, torch, tpf, tdia, tbanded, dev,
                                     A512, A2k, host512, host2k)
     print(f"# phase 13: {t_phase13:.3f} s")
+
+    # ~~~~~~~~~~ 14. unstructured meshes ~~~~~~~~~~
+    del A2k
+    mesh_runs, t_phase14 = phase14(np, sp, torch, tpf, tdia, tbanded, dev,
+                                   check, measure, timed, profile_solve,
+                                   setup_breakdown)
+    print(f"# phase 14: {t_phase14:.3f} s")
 
     kernels = []
     for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
@@ -764,7 +801,8 @@ def main() -> int:
                for key, runs in (("gmres_2048", gmres_runs),
                                  ("reuse", reuse_runs),
                                  ("device_resetup", resetup_runs),
-                                 ("device_setup", setup_runs))},
+                                 ("device_setup", setup_runs),
+                                 ("unstructured", mesh_runs))},
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -987,15 +1025,16 @@ HISTORY_FLOOR = 1e-12  # phase 10 (a): of the initial norm (rounding)
 F32_FLOOR = 1e-6       # phase 10 (b): f32 rounding floor of a residual
 
 
-def phase10(np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure,
+def phase10(np, sp, torch, tpf, tdia, tbanded, dev, Abig, check, measure,
             timed, profile_solve, setup_breakdown, phase7_dia_per_it):
     """The AIR options on the card (see the module docstring, phase 10).
-    Returns the 512^2 runs and the 2048^2 run ({label: {"launches",
+    Returns the 512^2 runs and the ``Abig`` runs ({label: {"launches",
     "iterations"}}) and the phase's seconds."""
     from pflare_tpu_torch.sparse import DIA
     from pflare_tpu_torch.sparse.ops import diag_dominance_ratio
     from pflare_tpu_torch.utils.timers import device_sync_read, reset_timers
 
+    side = math.isqrt(Abig.shape[0])   # Abig is the side^2 grid
     t_phase = time.perf_counter()
 
     def counts():
@@ -1077,7 +1116,7 @@ def phase10(np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure,
         del matrices, A_adv, top3d
         t_a = time.perf_counter() - t_phase
 
-        # (b) 2048^2, f32: the phase-7 options with lAIR and fcf smoothing,
+        # (b) Abig, f32: the phase-7 options with lAIR and fcf smoothing,
         # and strong-R dropping: without it the lAIR sparsity of the coarse
         # levels reaches 100-200 unknowns a row, and their host solves alone
         # would take several minutes at this size.  Its host setup and
@@ -1091,9 +1130,9 @@ def phase10(np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure,
         pc = tpf.PCAIR(opts, dtype=torch.float32, device=dev)
         reset_timers()
         t0 = time.perf_counter()
-        pc.setup(A2k.astype(np.float32))
+        pc.setup(Abig.astype(np.float32))
         t_setup = time.perf_counter() - t0
-        print(f"# 2048^2 f32 lAIR fcf setup phases: {setup_breakdown()}")
+        print(f"# {side}^2 f32 lAIR fcf setup phases: {setup_breakdown()}")
         t0 = time.perf_counter()
         pc.upload()
         torch.cuda.synchronize()
@@ -1127,15 +1166,15 @@ def phase10(np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure,
         pool.shutdown(wait=True, cancel_futures=True)
         torch.set_num_threads(n_threads)
     del pending
-    b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
+    bbig = np.random.default_rng(1).standard_normal(Abig.shape[0])
 
     def true_residual(x):
-        return float(np.linalg.norm(A2k @ x.double().cpu().numpy() - b2k)
-                     / np.linalg.norm(b2k))
+        return float(np.linalg.norm(Abig @ x.double().cpu().numpy() - bbig)
+                     / np.linalg.norm(bbig))
 
     zero_counts()
     t0 = time.perf_counter()
-    x, norms = pc.solve_device(b2k, max_it=10)
+    x, norms = pc.solve_device(bbig, max_it=10)
     device_sync_read(x, norms)
     t_solve = time.perf_counter() - t0
     launches = counts()
@@ -1144,10 +1183,10 @@ def phase10(np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure,
     # two iterations, above the f32 rounding floor, where the reported
     # residual must be the true one's; after ten both sit at that floor
     # (b - A x in f32 rounds to ~1e-7 of ||b||), where they differ
-    x2, norms2 = pc.solve_device(b2k, max_it=2)
+    x2, norms2 = pc.solve_device(bbig, max_it=2)
     reported2 = float(norms2[-1] / norms2[0])
     true2 = true_residual(x2)
-    print(f"# 2048^2 f32 lAIR fcf: {pc.n_levels} levels "
+    print(f"# {side}^2 f32 lAIR fcf: {pc.n_levels} levels "
           f"{[lv.n for lv in pc.hierarchy.levels]}, host setup "
           f"{t_setup:.3f} s, upload {t_upload:.3f} s, solve_device 10 "
           f"Richardson its {t_solve:.4f} s to completion, relative residual "
@@ -1157,42 +1196,42 @@ def phase10(np, sp, torch, tpf, tdia, tbanded, dev, A2k, check, measure,
           f"(phase 7: {phase7_dia_per_it:.1f}), relative norms "
           f"{np.array2string(norms / norms[0], precision=3)}")
     require(np.isfinite(norms).all() and abs(true2 - reported2)
-            <= 0.1 * reported2, f"2048^2 lAIR fcf: true residual {true2:.3e}"
+            <= 0.1 * reported2, f"{side}^2 lAIR fcf: true residual {true2:.3e}"
             f" against {reported2:.3e} reported after 2 its")
     require(abs(true - reported) <= 0.1 * reported
-            or max(true, reported) <= F32_FLOOR, f"2048^2 lAIR fcf: true "
+            or max(true, reported) <= F32_FLOOR, f"{side}^2 lAIR fcf: true "
             f"residual {true:.3e} against {reported:.3e} reported")
-    require(launches["dia"] / 10 > phase7_dia_per_it, f"2048^2 lAIR fcf: "
+    require(launches["dia"] / 10 > phase7_dia_per_it, f"{side}^2 lAIR fcf: "
             f"{launches['dia'] / 10} DIA launches an iteration, not more "
             f"than phase 7's {phase7_dia_per_it}")
-    runs["2048 lair fcf"] = {"launches": launches, "iterations": 10}
+    runs[f"{side} lair fcf"] = {"launches": launches, "iterations": 10}
 
     # right GMRES on the device (gmres_right_fixed) on the same hierarchy
     zero_counts()
     t0 = time.perf_counter()
-    x, norms = pc.solve_device(b2k, max_it=10, ksp="gmres")
+    x, norms = pc.solve_device(bbig, max_it=10, ksp="gmres")
     device_sync_read(x, norms)
     t_solve = time.perf_counter() - t0
     launches = counts()
     norms = norms.cpu().numpy()
-    x2, norms2 = pc.solve_device(b2k, max_it=2, ksp="gmres")
+    x2, norms2 = pc.solve_device(bbig, max_it=2, ksp="gmres")
     reported2 = float(norms2[-1] / norms2[0])
     true2 = true_residual(x2)
-    print(f"# 2048^2 f32 lAIR fcf: solve_device 10 right GMRES its "
+    print(f"# {side}^2 f32 lAIR fcf: solve_device 10 right GMRES its "
           f"{t_solve:.4f} s to completion, relative residual "
           f"{norms[-1] / norms[0]:.6e} reported, {true_residual(x):.6e} true; "
           f"after 2 its {reported2:.6e} reported, {true2:.6e} true; launches "
           f"{launches}, relative norms "
           f"{np.array2string(norms / norms[0], precision=3)}")
     require(np.isfinite(norms).all() and abs(true2 - reported2)
-            <= 0.1 * reported2, f"2048^2 lAIR fcf GMRES: true residual "
+            <= 0.1 * reported2, f"{side}^2 lAIR fcf GMRES: true residual "
             f"{true2:.3e} against {reported2:.3e} reported after 2 its")
-    require(launches["dia"] > 0 and launches["banded"] > 0, f"2048^2 lAIR "
+    require(launches["dia"] > 0 and launches["banded"] > 0, f"{side}^2 lAIR "
             f"fcf GMRES: a kernel was not launched: {launches}")
-    runs["2048 lair fcf gmres"] = {"launches": launches, "iterations": 10}
+    runs[f"{side} lair fcf gmres"] = {"launches": launches, "iterations": 10}
     t0 = time.perf_counter()
-    profile_solve(pc, b2k, "2048^2 lAIR fcf")
-    print(f"# 2048^2 lAIR fcf: profiled solve and its tables "
+    profile_solve(pc, bbig, f"{side}^2 lAIR fcf")
+    print(f"# {side}^2 lAIR fcf: profiled solve and its tables "
           f"{time.perf_counter() - t0:.3f} s")
     del pc
     print(f"# phase 10 (b), with the end of (a)'s CPU twins: "
@@ -1216,7 +1255,7 @@ def perturbed(np, A, seed):
     return A2
 
 
-def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
+def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, Abig,
             setup_breakdown):
     """Same-pattern re-setup on the host (see the module docstring, phase
     11).  Returns the runs ({label: {"launches", "iterations"}}) and the
@@ -1224,6 +1263,7 @@ def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
     from pflare_tpu_torch.utils.timers import (device_sync_read, get_timers,
                                                reset_timers)
 
+    side = math.isqrt(Abig.shape[0])   # Abig is the side^2 grid
     t_phase = time.perf_counter()
 
     def counts():
@@ -1364,7 +1404,7 @@ def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
                       "kept")
         del pc, h
 
-        # (b) 2048^2, f32 solve of a hierarchy set up from the f64 matrix
+        # (b) Abig, f32 solve of a hierarchy set up from the f64 matrix
         # (the plan re-setup computes in f64, as the reference's does)
         print(f"# phase 11 (b) starts: {host_gib()}", flush=True)
         opts = bench_options(tpf, max_levels=10).replace(
@@ -1372,13 +1412,13 @@ def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
         pc = tpf.PCAIR(opts, dtype=torch.float32, device=dev)
         reset_timers()
         t0 = time.perf_counter()
-        pc.setup(A2k)
+        pc.setup(Abig)
         t_first = time.perf_counter() - t0
         first_split = setup_breakdown()
-        A2k2 = perturbed(np, A2k, 6)
+        Abig2 = perturbed(np, Abig, 6)
         reset_timers()
         t0 = time.perf_counter()
-        pc.setup(A2k2, "same")
+        pc.setup(Abig2, "same")
         t_re = time.perf_counter() - t0
         fast = sum("host_fast" in lv.patterns for lv in pc.hierarchy.levels)
         t0 = time.perf_counter()
@@ -1387,36 +1427,36 @@ def phase11(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k,
         t_upload = time.perf_counter() - t0
         require(dh.top.dtype == torch.float32 and all(
             lev[k].dtype == torch.float32 for lev in dh.levels
-            for k in ("A_ff", "A_fc", "R", "P")), "2048^2 reuse: the "
+            for k in ("A_ff", "A_fc", "R", "P")), f"{side}^2 reuse: the "
             "upload is not float32")
-        b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
+        bbig = np.random.default_rng(1).standard_normal(Abig.shape[0])
         zero_counts()
         t0 = time.perf_counter()
-        x, norms = pc.solve_device(b2k, max_it=10, ksp="richardson")
+        x, norms = pc.solve_device(bbig, max_it=10, ksp="richardson")
         device_sync_read(x, norms)
         t_solve = time.perf_counter() - t0
         launches = counts()
         norms = norms.cpu().numpy()
         its = _converged_at(np, norms, 1e-5)
-        true = float(np.linalg.norm(A2k2 @ x.double().cpu().numpy() - b2k)
-                     / np.linalg.norm(b2k))
-        print(f"# 2048^2 after the re-setup: {host_gib()}")
-        print(f"# 2048^2 reuse amount 3 (f64 setup, f32 solve): first "
+        true = float(np.linalg.norm(Abig2 @ x.double().cpu().numpy() - bbig)
+                     / np.linalg.norm(bbig))
+        print(f"# {side}^2 after the re-setup: {host_gib()}")
+        print(f"# {side}^2 reuse amount 3 (f64 setup, f32 solve): first "
               f"setup {t_first:.3f} s ({first_split}), re-setup {t_re:.3f} "
               f"s ({resetup_split()}), {t_first / t_re:.2f}x, {fast} of "
               f"{len(pc.hierarchy.levels)} levels by plans; upload "
               f"{t_upload:.3f} s; solve_device 10 Richardson its "
               f"{t_solve:.4f} s, rtol 1e-5 at iteration {its}, true "
               f"residual {true:.3e}, launches {launches}")
-        require(fast == len(pc.hierarchy.levels), "2048^2: a level was not "
+        require(fast == len(pc.hierarchy.levels), f"{side}^2: a level was not "
                 "re-set up by its plans")
         require(its is not None and true <= 1e-4 and np.isfinite(norms).all(),
-                f"2048^2 reuse: did not converge ({true:.3e})")
+                f"{side}^2 reuse: did not converge ({true:.3e})")
         require(launches["dia"] > 0 and launches["banded"] > 0,
-                f"2048^2 reuse: a kernel was not launched: {launches}")
-        runs["2048 reuse amount 3"] = {"launches": launches,
+                f"{side}^2 reuse: a kernel was not launched: {launches}")
+        runs[f"{side} reuse amount 3"] = {"launches": launches,
                                        "iterations": 10}
-        handoff = {"pc": pc, "A2": A2k2, "host_s": t_re + t_upload}
+        handoff = {"pc": pc, "A2": Abig2, "host_s": t_re + t_upload}
         del dh, x
 
         for label, line, res, launches, twin in pending:
@@ -1471,13 +1511,14 @@ def max_rel_diff(np, got, want):
     return worst
 
 
-def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, handoff):
+def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, Abig, handoff):
     """The device re-setup (see the module docstring, phase 12).  Returns
     the runs ({label: {"launches", "iterations"}}) and the phase's
     seconds."""
     from pflare_tpu_torch.sparse import BandedSpMV
     from pflare_tpu_torch.utils.timers import count_syncs, device_sync_read
 
+    side = math.isqrt(Abig.shape[0])   # Abig is the side^2 grid
     t_phase = time.perf_counter()
 
     def counts():
@@ -1601,26 +1642,26 @@ def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, handoff):
                 f"the CPU's by {diff:.3e} at {where}")
     t_a = time.perf_counter() - t_phase
 
-    # (b) 2048^2, f32: phase 11 (b)'s PCAIR and matrix
-    pc, A2k2 = handoff["pc"], handoff["A2"]
+    # (b) Abig, f32: phase 11 (b)'s PCAIR and matrix
+    pc, Abig2 = handoff["pc"], handoff["A2"]
     torch.cuda.reset_peak_memory_stats()
     plan, t_plan = timed(pc.build_device_resetup)
-    _, t_install = timed(plan.install, pc, A2k2)
-    _, t_warm = timed(plan.install, pc, A2k2)
-    _, n_sync = count_syncs(plan.install, pc, A2k2)
+    _, t_install = timed(plan.install, pc, Abig2)
+    _, t_warm = timed(plan.install, pc, Abig2)
+    _, n_sync = count_syncs(plan.install, pc, Abig2)
     peak = torch.cuda.max_memory_allocated()
-    b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
+    bbig = np.random.default_rng(1).standard_normal(Abig.shape[0])
     zero_counts()
     t0 = time.perf_counter()
-    x, norms = pc.solve_device(b2k, max_it=10, ksp="richardson")
+    x, norms = pc.solve_device(bbig, max_it=10, ksp="richardson")
     device_sync_read(x, norms)
     t_solve = time.perf_counter() - t0
     launches = counts()
     norms = norms.cpu().numpy()
     its = _converged_at(np, norms, 1e-5)
-    true = float(np.linalg.norm(A2k2 @ x.double().cpu().numpy() - b2k)
-                 / np.linalg.norm(b2k))
-    print(f"# 2048^2 f32 device re-setup: plan {t_plan:.3f} s "
+    true = float(np.linalg.norm(Abig2 @ x.double().cpu().numpy() - bbig)
+                 / np.linalg.norm(bbig))
+    print(f"# {side}^2 f32 device re-setup: plan {t_plan:.3f} s "
           f"({plan.device_bytes / 1e9:.3f} GB on the card), install "
           f"{t_install:.4f} s first / {t_warm:.4f} s warm, against host "
           f"re-setup + upload {handoff['host_s']:.3f} s "
@@ -1630,23 +1671,23 @@ def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, handoff):
           f"iteration {its}, true residual {true:.3e}, launches {launches}; "
           f"{host_gib()}")
     require(its is not None and true <= 1e-4 and np.isfinite(norms).all(),
-            f"2048^2 device re-setup: did not converge ({true:.3e})")
+            f"{side}^2 device re-setup: did not converge ({true:.3e})")
     require(launches["dia"] > 0 and launches["banded"] > 0,
-            f"2048^2 device re-setup: a kernel was not launched: {launches}")
-    runs["2048 device re-setup"] = {"launches": launches, "iterations": 10}
+            f"{side}^2 device re-setup: a kernel was not launched: {launches}")
+    runs[f"{side} device re-setup"] = {"launches": launches, "iterations": 10}
 
     # one warm install under the profiler, device activity alone
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, t_prof = timed(plan.install, pc, A2k2)
+        _, t_prof = timed(plan.install, pc, Abig2)
     busy_us, ops = 0.0, []
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
             busy_us += evt.self_device_time_total
             ops.append((evt.self_device_time_total, evt.count, evt.key))
     ops.sort(reverse=True)
-    print(f"# 2048^2 f32 profiled install: wall {t_prof:.4f} s, device busy "
+    print(f"# {side}^2 f32 profiled install: wall {t_prof:.4f} s, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / 1e6 / t_prof:.1%}; top device ops: " + "; ".join(
               f"{key[:60]} {t / 1e3:.3f} ms in {c}" for t, c, key in ops[:6]))
@@ -1943,6 +1984,413 @@ def phase13(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512,
     print(f"# phase 13 (a) {t_a:.3f} s, (b) "
           f"{time.perf_counter() - t_phase - t_a:.3f} s")
     del pc, h, x
+    return runs, time.perf_counter() - t_phase
+
+
+# ~~~~~~~~~~ phase 14: unstructured meshes ~~~~~~~~~~
+
+# grid sides of (a) and (b): 2 m^2 jittered Delaunay triangles each
+PHASE14_M = {"fv": 1024, "dg1": 512}
+
+
+def mesh_tri(np, m, seed=0, jitter=0.3):
+    """Delaunay triangles of an (m+1)^2 grid on the unit square whose
+    interior points are jittered by up to ``jitter`` of a spacing, in a
+    seeded scrambled cell order (the construction of
+    tests/torch_cases.py::tri_mesh)."""
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    g = np.linspace(0.0, 1.0, m + 1)
+    pts = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    inner = np.all((pts > 0) & (pts < 1), axis=1)
+    pts[inner] += rng.uniform(-jitter, jitter, (inner.sum(), 2)) / m
+    cells = Delaunay(pts).simplices.astype(np.int64)
+    return pts, cells[rng.permutation(len(cells))]
+
+
+def mesh_tet(np, m, seed=0, jitter=0.2):
+    """Delaunay tets of a jittered (m+1)^3 grid on the unit cube, without
+    the flat tets of coplanar boundary points."""
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    g = np.linspace(0.0, 1.0, m + 1)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    inner = np.all((pts > 0) & (pts < 1), axis=1)
+    pts[inner] += rng.uniform(-jitter, jitter, (inner.sum(), 3)) / m
+    cells = Delaunay(pts).simplices.astype(np.int64)
+    vol = np.abs(np.linalg.det(pts[cells[:, 1:]] - pts[cells[:, :1]])) / 6
+    return pts, cells[vol > 1e-6 / m ** 3]
+
+
+def mesh_annulus(np, nr, nt, nz, twist=0.5, r0=0.5, r1=1.0):
+    """Hexes on an annulus r0 <= r <= r1, 0 <= z <= 1, twisted by
+    ``twist`` radians over the height (the reference's annulus_twisted
+    family)."""
+    r, z = np.linspace(r0, r1, nr + 1), np.linspace(0.0, 1.0, nz + 1)
+    R, T, Z = np.meshgrid(r, np.arange(nt) * (2 * np.pi / nt), z,
+                          indexing="ij")
+    T = T + twist * Z
+    pts = np.stack([R * np.cos(T), R * np.sin(T), Z], -1).reshape(-1, 3)
+    a, b, c = (x.ravel() for x in np.meshgrid(
+        np.arange(nr), np.arange(nt), np.arange(nz), indexing="ij"))
+
+    def vid(i, j, k):
+        return (i * nt + j % nt) * (nz + 1) + k
+
+    return pts, np.stack([
+        vid(a, b, c), vid(a + 1, b, c), vid(a + 1, b + 1, c),
+        vid(a, b + 1, c), vid(a, b, c + 1), vid(a + 1, b, c + 1),
+        vid(a + 1, b + 1, c + 1), vid(a, b + 1, c + 1)], 1)
+
+
+GMSH_TYPES = {(2, 3): 2, (2, 4): 3, (3, 4): 4, (3, 8): 5}
+
+
+def write_gmsh(np, path, points, cells):
+    """Write a Gmsh 4.1 ASCII mesh of one cell block (node tags 1..n in
+    order, coordinates to 17 digits, so they read back exactly)."""
+    dim = 3 if cells.shape[1] == 8 or (
+        cells.shape[1] == 4 and points.shape[1] == 3) else 2
+    pts = np.zeros((len(points), 3))
+    pts[:, :points.shape[1]] = points
+    n, m, k = len(pts), len(cells), cells.shape[1]
+    row = " ".join(["%d"] * (k + 1))
+    tagged = np.hstack([np.arange(1, m + 1)[:, None], cells + 1])
+    with open(path, "w") as f:
+        f.write(f"$MeshFormat\n4.1 0 8\n$EndMeshFormat\n$Nodes\n1 {n} 1 {n}"
+                f"\n{dim} 1 0 {n}\n")
+        f.write("\n".join(map(str, range(1, n + 1))) + "\n")
+        f.write("\n".join("%.17g %.17g %.17g" % tuple(p)
+                          for p in pts.tolist()) + "\n")
+        f.write(f"$EndNodes\n$Elements\n1 {m} 1 {m}\n{dim} 1 "
+                f"{GMSH_TYPES[(dim, k)]} {m}\n")
+        f.write("\n".join(row % tuple(c) for c in tagged.tolist()) + "\n")
+        f.write("$EndElements\n")
+
+
+def write_petsc(np, path, A, vecs):
+    """Write a PETSc binary AIJ matrix followed by vectors."""
+    with open(path, "wb") as f:
+        np.array([1211216, A.shape[0], A.shape[1], A.nnz], ">i4").tofile(f)
+        np.diff(A.indptr).astype(">i4").tofile(f)
+        A.indices.astype(">i4").tofile(f)
+        A.data.astype(">f8").tofile(f)
+        for v in vecs:
+            np.array([1211214, len(v)], ">i4").tofile(f)
+            np.asarray(v, ">f8").tofile(f)
+
+
+def peak_rss() -> str:
+    import resource
+
+    return (f"peak host memory "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
+            " GiB")
+
+
+# (label, mesh, assembly and keywords, AIROptions keywords, solve
+# keywords, the reference's cap) of phase 14 (c): the option sets of
+# tests/test_mesh.py:55-190 on generated meshes of 10-50k DoF, f64
+PHASE14_SETS = (
+    ("FV tri", ("tri", 100), ("fv", {}), dict(a_lump=True),
+     dict(ksp="richardson"), 6),
+    ("FV tet", ("tet", 16), ("fv", {}), dict(a_lump=True),
+     dict(ksp="richardson"), 4),
+    ("DG(1) tri", ("tri", 58), ("dg1", {}), {}, dict(ksp="richardson"), 4),
+    ("DG(1) tri curved", ("tri", 58), ("dg1", dict(curved=True)), {},
+     dict(ksp="richardson"), 4),
+    ("DG(1) tet", ("tet", 9), ("dg1", {}), dict(a_lump=True),
+     dict(ksp="richardson"), 6),
+    ("DG(1) twisted annulus hex", ("hex", (4, 64, 8)),
+     ("dg1", dict(velocity=(0.0, 0.0, 1.0))), dict(a_lump=True),
+     dict(ksp="richardson"), 5),
+    ("SUPG tet", ("tet", 24), ("supg", {}), dict(a_lump=True),
+     dict(ksp="richardson"), 4),
+    ("SUPG tri curved unscaled PRODUCT", ("tri", 128),
+     ("supg", dict(curved=True, unit_velocity=False)),
+     dict(a_lump=True, diag_scale_polys=True, z_type="PRODUCT"),
+     dict(ksp="richardson"), 5),
+    ("SUPG tri curved unscaled LAIR", ("tri", 128),
+     ("supg", dict(curved=True, unit_velocity=False)),
+     dict(a_lump=True, diag_scale_polys=True, z_type="LAIR"),
+     dict(ksp="richardson"), 5),
+    ("SUPG tri diffusion", ("tri", 128),
+     ("supg", dict(alpha=1.0, velocity=(0.0, 0.0), unit_velocity=False)),
+     {}, dict(rtol=1e-8), 30),
+)
+
+
+def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
+            profile_solve, setup_breakdown):
+    """Unstructured meshes on the card (see the module docstring, phase
+    14).  Returns the runs ({label: {"launches", "iterations"}}) and the
+    phase's seconds."""
+    import shutil
+    import tempfile
+
+    from pflare_tpu_torch.sparse import BandedSpMV
+    from pflare_tpu_torch.utils.timers import device_sync_read, reset_timers
+
+    require(dev.type == "cuda", "phase 14 runs on the card")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pflare_mesh_")
+    runs = {}
+
+    def counts():
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+
+    def zero_counts():
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+
+    def containers(pc):
+        """Each level's size and the container of each of its operators
+        (an inverse without a matrix by its kind)."""
+        h, dh = pc.hierarchy, pc.upload()
+        out = [f"top {type(dh.top).__name__}"]
+        for i, (lv, lev) in enumerate(zip(h.levels, dh.levels)):
+            inv = lev["inv_Aff"]
+            ops = [f"{k} {type(lev[k]).__name__}"
+                   for k in ("A_ff", "A_fc", "R", "P")]
+            ops.append("inv " + (inv.kind if inv.mat is None
+                                 else type(inv.mat).__name__))
+            out.append(f"level {i} ({lv.n} rows): " + ", ".join(ops))
+        coarse = getattr(h, "coarse_matrix", None)
+        coarse = h.coarse_A if coarse is None else coarse
+        return "; ".join(out) + f"; coarse {coarse.shape[0]} rows"
+
+    def solve(label, pc, A, b, ksp="richardson", needed=True, cap=30):
+        """Richardson or right GMRES to rtol 1e-5 (cap 30) with the
+        counters at 0: the iterations, the true residual by scipy in f64
+        and the launches; ``needed``: it must converge (true residual <=
+        1e-4)."""
+        kw = dict(side="right") if ksp == "gmres" else {}
+        zero_counts()
+        t0 = time.perf_counter()
+        res = pc.solve(b, ksp=ksp, rtol=1e-5, max_it=cap, **kw)
+        device_sync_read(res.x)
+        t = time.perf_counter() - t0
+        launches = counts()
+        true = float(np.linalg.norm(A @ res.x.double().cpu().numpy() - b)
+                     / np.linalg.norm(b))
+        its = max(res.iterations, 1)
+        h = np.asarray(res.history)
+        print(f"# {label}: {'right GMRES' if kw else 'Richardson'} "
+              f"{res.iterations} its to rtol 1e-5 (converged "
+              f"{res.converged}), {t:.4f} s to completion, true residual "
+              f"{true:.3e}, launches {launches}, an iteration dia "
+              f"{launches['dia'] / its:.2f} banded "
+              f"{launches['banded'] / its:.2f}, relative norms "
+              + np.array2string(h[:12] / h[0], precision=3,
+                                max_line_width=10**4))
+        if needed:
+            require(res.converged and true <= 1e-4 and np.isfinite(true),
+                    f"{label}: {ksp} did not reach rtol 1e-5 in {cap} its "
+                    f"(true residual {true:.3e})")
+            runs[label] = {"launches": launches,
+                           "iterations": res.iterations}
+        return res, launches
+
+    def large_cell(tag, m, assemble, opts, ksp):
+        """(a)/(b): write, read and assemble the m-mesh; host setup +
+        upload and ``setup_device``, each solved by ``ksp`` (right GMRES
+        after a Richardson run for the record)."""
+        t0 = time.perf_counter()
+        pts, cells = mesh_tri(np, m)
+        t_mesh = time.perf_counter() - t0
+        path = os.path.join(tmp, f"{tag}_{m}.msh")
+        t0 = time.perf_counter()
+        write_gmsh(np, path, pts, cells)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        points, found = tpf.read_gmsh(path)
+        t_read = time.perf_counter() - t0
+        require(np.array_equal(points[:, :2], pts)
+                and np.array_equal(found["tri"], cells),
+                f"{tag} m={m}: the mesh read back differs from the one "
+                "written")
+        os.remove(path)
+        t0 = time.perf_counter()
+        A = assemble(points, found["tri"])
+        t_asm = time.perf_counter() - t0
+        del pts, cells, points, found
+        label = f"{tag} m={m}"
+        print(f"# {label}: {A.shape[0]} DoF, {A.nnz} nonzeros; mesh "
+              f"{t_mesh:.3f} s, write {t_write:.3f} s ({size / 1e6:.1f} MB), "
+              f"read_gmsh {t_read:.3f} s, assemble {t_asm:.3f} s; "
+              f"{host_gib()}, {peak_rss()}", flush=True)
+        b = np.random.default_rng(1).standard_normal(A.shape[0])
+
+        pc = tpf.PCAIR(opts, dtype=torch.float32, device=dev)
+        reset_timers()
+        t0 = time.perf_counter()
+        pc.setup(A)
+        t_setup = time.perf_counter() - t0
+        s0 = pc.stats()
+        t0 = time.perf_counter()
+        dh = pc.upload()
+        torch.cuda.synchronize()
+        t_upload = time.perf_counter() - t0
+        s1 = pc.stats()
+        require(pc.hierarchy.compacted and pc.host_bytes_released > 0
+                and s0 == s1, f"{label}: the upload did not compact the "
+                "host hierarchy, or stats() changed")
+        print(f"# {label} f32 host setup {t_setup:.3f} s + upload "
+              f"{t_upload:.3f} s, {pc.n_levels} levels, reordered "
+              f"{pc._perm is not None}; {containers(pc)}; compact_host "
+              f"released {pc.host_bytes_released / 1e9:.3f} GB of host CSR; "
+              f"stats() before and after: operator complexity "
+              f"{s0['operator_complexity']:.6f} / "
+              f"{s1['operator_complexity']:.6f}, storage "
+              f"{s0['storage_complexity']:.6f} / "
+              f"{s1['storage_complexity']:.6f}, nnz {s1['nnz']}; "
+              f"{host_gib()}, {peak_rss()}", flush=True)
+        if ksp == "gmres":
+            solve(f"{label} host setup, Richardson", pc, A, b, needed=False)
+        res, launches = solve(f"{label} host setup", pc, A, b, ksp)
+        print(f"# {label} host setup phases: {setup_breakdown()}")
+        profile_solve(pc, b, f"{label} host-built")
+        top = dh.top
+        del pc, dh, res
+
+        pcd = tpf.PCAIR(opts, dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        pcd.setup_device(A)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        print(f"# {label} f32 setup_device {t_dev:.3f} s to completion "
+              f"({(t_setup + t_upload) / t_dev:.1f}x the host setup + "
+              f"upload), {pcd.n_levels} levels; {containers(pcd)}")
+        solve(f"{label} setup_device", pcd, A, b, ksp)
+        profile_solve(pcd, b, f"{label} device-built")
+        del pcd
+        return A, b, top, launches
+
+    try:
+        # (a) FV on 2 x 1024^2 triangles: the top level on the banded kernel
+        A, b, top, launches = large_cell(
+            "FV", PHASE14_M["fv"], tpf.fv_upwind_advection,
+            tpf.AIROptions(a_lump=True, reorder="auto"), "richardson")
+        require(isinstance(top, BandedSpMV), f"FV: the reordered top A is a "
+                f"{type(top).__name__}, not banded")
+        its = runs[f"FV m={PHASE14_M['fv']} host setup"]["iterations"]
+        require(launches["banded"] >= its, f"FV: {launches['banded']} "
+                f"banded launches in {its} iterations")
+        check(top, "banded", f"FV m={PHASE14_M['fv']} top A banded "
+              f"W={top.W}")
+        timed["banded"].append(measure(f"FV m={PHASE14_M['fv']} top A", top))
+        del A, b, top
+
+        # (b) DG(1) on 2 x 512^2 triangles: its V-cycle diverges as a
+        # stationary iteration at this size (Richardson's norms grow by
+        # ~1.4 an iteration from the third on, card and CPU alike, with
+        # every option set tried), so the solve that must converge is
+        # right GMRES; the Richardson run is printed for the record
+        A, b, _, _ = large_cell("DG(1)", PHASE14_M["dg1"],
+                                tpf.dg1_upwind_advection,
+                                tpf.AIROptions(reorder="auto"), "gmres")
+
+        # (d) the file route: (b)'s matrix and RHS in PETSc binary
+        path = os.path.join(tmp, "dg1.petsc")
+        t0 = time.perf_counter()
+        write_petsc(np, path, A, [b])
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Af, vecs = tpf.read_petsc_matrix(path, return_vecs=True)
+        t_read = time.perf_counter() - t0
+        require(Af.shape == A.shape and all(
+            np.array_equal(getattr(Af, k), getattr(A, k))
+            for k in ("indptr", "indices", "data")) and len(vecs) == 1
+            and np.array_equal(vecs[0], b), "PETSc binary: the matrix or "
+            "vector read back differs")
+        os.remove(path)
+        print(f"# PETSc binary of the DG(1) matrix and RHS: write "
+              f"{t_write:.3f} s, read {t_read:.3f} s, equal bit for bit")
+        del A
+        inv = tpf.PCPFLAREINV(dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        inv.setup(Af)
+        inv.upload()
+        torch.cuda.synchronize()
+        t_inv = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        res = inv.solve(vecs[0], rtol=1e-5, max_it=30)
+        device_sync_read(res.x)
+        t_solve = time.perf_counter() - t0
+        launches = counts()
+        true = float(np.linalg.norm(Af @ res.x.double().cpu().numpy()
+                                    - vecs[0]) / np.linalg.norm(vecs[0]))
+        print(f"# file DG(1) PCPFLAREINV default f32: setup + upload "
+              f"{t_inv:.3f} s, GMRES {res.iterations} its (converged "
+              f"{res.converged}), {t_solve:.4f} s, true residual "
+              f"{true:.3e}, launches {launches}")
+        require(np.isfinite(true) and true < 1.0, "file DG(1) PCPFLAREINV: "
+                f"the residual did not fall ({true:.3e})")
+        runs["file DG(1) PCPFLAREINV"] = {"launches": launches,
+                                          "iterations": res.iterations}
+        del inv, res
+        pcf = tpf.PCAIR(tpf.AIROptions(reorder="auto"), dtype=torch.float32,
+                        device=dev)
+        t0 = time.perf_counter()
+        pcf.setup_device(Af)
+        torch.cuda.synchronize()
+        print(f"# file DG(1) PCAIR setup_device {time.perf_counter() - t0:.3f}"
+              " s")
+        solve("file DG(1) PCAIR", pcf, Af, vecs[0], "gmres")
+        del pcf, Af, vecs
+        t_ab = time.perf_counter() - t_phase
+
+        # (c) small meshes, f64: card against its CPU twin
+        assemble = {"fv": tpf.fv_upwind_advection,
+                    "dg1": tpf.dg1_upwind_advection,
+                    "supg": tpf.supg_advection_diffusion}
+        meshes = {}
+        for label, (kind, size), (asm, kw), opts_kw, solve_kw, cap in \
+                PHASE14_SETS:
+            if (kind, size) not in meshes:
+                meshes[(kind, size)] = (
+                    mesh_tri(np, size) if kind == "tri" else
+                    mesh_tet(np, size) if kind == "tet" else
+                    mesh_annulus(np, *size))
+            pts, cells = meshes[(kind, size)]
+            A = assemble[asm](pts, cells, **kw)
+            b = np.random.default_rng(0).standard_normal(A.shape[0])
+            kw_solve = dict(rtol=1e-5, max_it=30) | solve_kw
+            pc = tpf.PCAIR(tpf.AIROptions().replace(**opts_kw),
+                           dtype=torch.float64, device=dev).setup(A)
+            cpu = pc.on("cpu")
+            zero_counts()
+            res = pc.solve(b, **kw_solve)
+            launches = counts()
+            ref = cpu.solve(b, **kw_solve)
+            h, hr = np.asarray(res.history), np.asarray(ref.history)
+            true = float(np.linalg.norm(A @ res.x.cpu().numpy() - b)
+                         / np.linalg.norm(b))
+            dev_rel = (float(np.max(np.abs(h - hr) / hr)) if len(h) == len(hr)
+                       else float("inf"))
+            print(f"# {label}: {A.shape[0]} DoF f64, {pc.n_levels} levels, "
+                  f"{kw_solve.get('ksp', 'gmres')} {res.iterations} its "
+                  f"(reference cap {cap} on its own mesh; CPU twin "
+                  f"{ref.iterations}), true residual {true:.3e}, card "
+                  f"against CPU history max relative difference "
+                  f"{dev_rel:.3e}, launches {launches}, compacted "
+                  f"{pc.hierarchy.compacted}")
+            require(res.converged and len(h) == len(hr) and np.all(
+                np.abs(h - hr) <= HISTORY_RTOL * hr + HISTORY_FLOOR * hr[0]),
+                f"{label}: card and CPU histories differ")
+            require(true <= 10 * kw_solve["rtol"] and pc.hierarchy.compacted,
+                    f"{label}: true residual {true:.3e}")
+            runs[label] = {"launches": launches,
+                           "iterations": res.iterations}
+            del pc, cpu
+        print(f"# phase 14 (a, b, d) {t_ab:.3f} s, (c) "
+              f"{time.perf_counter() - t_phase - t_ab:.3f} s; {peak_rss()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return runs, time.perf_counter() - t_phase
 
 

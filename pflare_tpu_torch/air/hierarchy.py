@@ -15,6 +15,7 @@ form of the solve.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -108,6 +109,23 @@ class DeviceHierarchy:
         return out
 
 
+class HostShim:
+    """nnz/shape placeholder for a released host matrix -- the reference
+    destroys the level matrix and substitutes a matshell when only
+    F-smoothing needs it (reference: src/AIR_MG_Setup.F90:614-639).
+    Stats keep working; the memory is released."""
+
+    __slots__ = ("nnz", "shape")
+
+    def __init__(self, M):
+        self.nnz = int(M.nnz)
+        self.shape = tuple(M.shape)
+
+
+def _csr_bytes(M) -> int:
+    return int(M.data.nbytes + M.indices.nbytes + M.indptr.nbytes)
+
+
 @dataclass
 class Hierarchy:
     levels: list            # list[LevelData]
@@ -118,10 +136,75 @@ class Hierarchy:
     # the constraints' candidate vectors (None: the constant vector), which
     # the device re-setup smooths anew
     near_nullspace: list | None = None
+    # uploads still to come from this host hierarchy: its PCAIR's own and
+    # one for each twin ``PCAIR.on`` made; the last one compacts it
+    pending_uploads: int = 0
+    compacted: bool = False
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
 
     @property
     def n_levels(self):
         return len(self.levels) + 1
+
+    def expect_upload(self):
+        """Register one more upload to come (a new PCAIR sharing this
+        hierarchy); after compaction there is nothing left to upload."""
+        with self._lock:
+            if self.compacted:
+                raise ValueError(
+                    "this host hierarchy was compacted after its last "
+                    "pending upload (no reuse_sparsity): its level "
+                    "matrices are released, so no further PCAIR can "
+                    "upload it; make twins with on() before uploading, or "
+                    "set up again")
+            self.pending_uploads += 1
+
+    def upload_done(self) -> int:
+        """One registered upload happened; the last one compacts the host
+        hierarchy unless sparsity reuse needs it.  Returns the host bytes
+        that compaction released (0 if none ran)."""
+        with self._lock:
+            self.pending_uploads -= 1
+            if self.pending_uploads > 0 or self.options.reuse_sparsity:
+                return 0
+            return self.compact_host()
+
+    def compact_host(self) -> int:
+        """Release the host CSR copies the live configuration can no
+        longer need (no sparsity reuse): every level matrix except the
+        finest operator, the assembled ``inv_Aff_host`` and the stored
+        patterns become ``HostShim``s (reference:
+        pflare_tpu/air/hierarchy.py:127-163, src/AIR_MG_Setup.F90:614-639).
+        The inverses and the coarsest matrix stay: ``stats`` reads them.
+        Returns the bytes of the CSR arrays no longer referenced."""
+        kept = {id(self.coarse_matrix)}
+        if self.levels:
+            kept.add(id(self.levels[0].A))
+        for lvl in self.levels:
+            for inv in (lvl.inv_Aff, lvl.inv_Acc):
+                if inv is not None and inv.host_csr is not None:
+                    kept.add(id(inv.host_csr))
+        released = {}
+
+        def shim(M):
+            if not sp.issparse(M):
+                return M
+            if id(M) not in kept:
+                released[id(M)] = _csr_bytes(M)
+            return HostShim(M)
+
+        for i, lvl in enumerate(self.levels):
+            for name in ("A_ff", "A_fc", "A_cf", "A_cc", "R", "P"):
+                setattr(lvl, name, shim(getattr(lvl, name)))
+            if i > 0:
+                lvl.A = shim(lvl.A)
+            shim(lvl.inv_Aff_host)       # counted; dropped as the reference
+            lvl.inv_Aff_host = None      # drops it
+            for key, val in lvl.patterns.items():
+                lvl.patterns[key] = shim(val)
+        self.compacted = True
+        return sum(released.values())
 
     def to(self, device, dtype) -> DeviceHierarchy:
         """Upload: the level operators, the coarse inverse and the

@@ -60,6 +60,12 @@ class PCAIR:
         self._iperm = None
         self._frozen = False    # KSPSetReusePreconditioner analogue
         self._injected_coeffs = None  # set_poly_coefficients payloads
+        # whether this PCAIR's upload of its host hierarchy is still
+        # registered there as pending (see Hierarchy.upload_done)
+        self._upload_owed = False
+        # host CSR bytes released when this PCAIR's upload compacted the
+        # host hierarchy (0: it did not)
+        self.host_bytes_released = 0
 
     def set_options(self, **kw):
         """Change options; the preconditioner resets."""
@@ -71,6 +77,7 @@ class PCAIR:
         self.hierarchy = None
         self._device_hierarchy = None
         self._injected_coeffs = None
+        self._upload_owed = False
 
     def freeze(self, flag: bool = True):
         """While frozen, ``setup`` keeps the hierarchy it has
@@ -132,6 +139,8 @@ class PCAIR:
                 near_nullspace=near_nullspace,
                 injected_coeffs=self._injected_coeffs)
         self._device_hierarchy = None
+        self.hierarchy.expect_upload()
+        self._upload_owed = True
         if self.options.print_stats_timings:
             print_stats(self.hierarchy)
             print_timers()
@@ -182,13 +191,20 @@ class PCAIR:
             self.hierarchy = setup_hierarchy_device(
                 A, self.options, dtype=self.dtype, device=self.device)
         self._device_hierarchy = self.hierarchy.solve_form
+        self._upload_owed = False
         return self
 
     def on(self, device) -> "PCAIR":
         """A PCAIR that shares this one's host hierarchy (and reordering)
         and solves on ``device``: one host setup, solved on the card and
-        on the CPU."""
+        on the CPU.  Without ``reuse_sparsity`` the host hierarchy is
+        compacted once every PCAIR sharing it has uploaded, so make the
+        twins before the last upload; afterwards this raises
+        ``ValueError``."""
         twin = PCAIR(self.options, dtype=self.dtype, device=device)
+        if isinstance(self.hierarchy, Hierarchy):
+            self.hierarchy.expect_upload()
+            twin._upload_owed = True
         twin.hierarchy = self.hierarchy
         if self._perm is not None:
             twin._perm = self._perm.to(twin.device)
@@ -233,12 +249,20 @@ class PCAIR:
     def upload(self) -> DeviceHierarchy:
         """The device form of the hierarchy, built on first use (the
         host-to-device copy stage, which the reference keeps out of its
-        setup timing: tests/adv_diff_fd.c:327)."""
+        setup timing: tests/adv_diff_fd.c:327).  Without
+        ``reuse_sparsity``, the last pending upload of a host hierarchy
+        (this PCAIR's and its twins', see ``on``) compacts it: every host
+        matrix but the finest operator becomes an nnz/shape shim, as the
+        reference's does after its upload (``Hierarchy.compact_host``);
+        ``stats`` reads the same numbers after it."""
         if self.hierarchy is None:
             raise RuntimeError("PCAIR not set up")
         if self._device_hierarchy is None:
             self._device_hierarchy = self.hierarchy.to(self.device,
                                                        self.dtype)
+        if self._upload_owed:
+            self._upload_owed = False
+            self.host_bytes_released = self.hierarchy.upload_done()
         return self._device_hierarchy
 
     @property

@@ -3,7 +3,8 @@
 Reference: src/AIR_MG_Stats.F90:17-421, ported from
 ``pflare_tpu.air.stats``.  Complexities are relative to the finest grid;
 the cycle complexity counts the nonzeros one V-cycle touches (matrix-free
-polynomial matvecs included) relative to nnz(A).  Host matrices only.
+polynomial matvecs included) relative to nnz(A).  Host matrices, or
+the nnz/shape shims that ``Hierarchy.compact_host`` leaves of them.
 """
 
 from __future__ import annotations

@@ -275,6 +275,7 @@ def test_stationary_gmres_card_matches_eager_and_cpu(side):
     A = tpf.adv_diff_2d(48)
     b = np.random.default_rng(0).standard_normal(A.shape[0])
     pc = tpf.PCAIR(dtype=torch.float64, device=dev).setup(A)
+    cpu = pc.on("cpu")        # before the upload, which compacts the host
     kw = dict(side=side, rtol=1e-10, max_it=60, restart=4)
     reads = jitted.HOST_READS
     tdia.KERNEL_LAUNCHES = 0
@@ -282,7 +283,7 @@ def test_stationary_gmres_card_matches_eager_and_cpu(side):
     reads = jitted.HOST_READS - reads
     assert tdia.KERNEL_LAUNCHES > 0 and res.converged
     assert reads <= res.iterations + 2 * (-(-res.iterations // 4)) + 2
-    for ref in (pc.solve(b, eager=True, **kw), pc.on("cpu").solve(b, **kw)):
+    for ref in (pc.solve(b, eager=True, **kw), cpu.solve(b, **kw)):
         assert res.iterations == ref.iterations
         h, hr = res.history, ref.history
         assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0])
@@ -415,3 +416,37 @@ def test_setup_device_card_matches_cpu():
     if not diverged:
         assert res.iterations == cpu.solve(b, side="right", rtol=1e-10,
                                            max_it=60).iterations
+
+
+def test_dg1_mesh_card_matches_cpu(tmp_path):
+    """The unstructured slice on the card: a seeded Delaunay mesh written
+    as Gmsh, read back, assembled as DG(1), set up on the host with the
+    RCM reorder and solved on the card and by its CPU twin (one host
+    setup, ``PCAIR.on`` before the upload): Richardson histories to 1e-8
+    of each norm or 1e-12 of the first, the host hierarchy compacted
+    after the twin's upload; the FV operator of the same mesh runs its
+    top level on the banded kernel."""
+    from torch_cases import tri_mesh, write_gmsh
+
+    dev = _card()
+    pts, cells = tri_mesh(16, seed=3)
+    path = write_gmsh(str(tmp_path / "tri.msh"), pts, [(2, cells)])
+    A = tpf.dg1_advection_from_gmsh(path)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    pc = tpf.PCAIR(tpf.AIROptions(reorder="auto"), dtype=torch.float64,
+                   device=dev).setup(A)
+    cpu = pc.on("cpu")
+    res = pc.solve(b, ksp="richardson", rtol=1e-5, max_it=10)
+    ref = cpu.solve(b, ksp="richardson", rtol=1e-5, max_it=10)
+    assert res.converged and res.iterations == ref.iterations
+    h, hr = np.asarray(res.history), np.asarray(ref.history)
+    assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0])
+    assert pc.hierarchy.compacted
+    fv = tpf.PCAIR(tpf.AIROptions(a_lump=True, reorder="auto"),
+                   dtype=torch.float64, device=dev).setup(
+        tpf.advection_from_gmsh(path))
+    assert isinstance(fv.upload().top, BandedSpMV)
+    tbanded.KERNEL_LAUNCHES = 0
+    x, norms = fv.solve_device(b[:fv.upload().top.n], max_it=6)
+    assert tbanded.KERNEL_LAUNCHES >= 6
+    assert float(norms[-1]) <= 1e-5 * float(norms[0])

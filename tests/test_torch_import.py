@@ -55,6 +55,43 @@ def test_device_setup_modules_stand_alone(module):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("module", ["problems.io", "problems.gmsh",
+                                    "problems.fem_dg", "problems.fem_supg"])
+def test_problem_modules_stand_alone(module):
+    """The readers and assemblies import neither jax nor pflare_tpu, each
+    on its own."""
+    code = (
+        "import json, importlib, sys\n"
+        f"importlib.import_module('pflare_tpu_torch.{module}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pflare_tpu')]\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_root_exports_cover_the_reference():
+    """The package root exports every name the reference's root does
+    (pflare_tpu/__init__.py), each a working object of the port, and the
+    problems package every name of the reference's."""
+    import pflare_tpu.problems as jprob
+    import pflare_tpu_torch.problems as tprob
+
+    assert set(pflare_tpu.__all__) <= set(pflare_tpu_torch.__all__)
+    assert set(jprob.__all__) <= set(tprob.__all__)
+    for name in pflare_tpu_torch.__all__:
+        module = getattr(getattr(pflare_tpu_torch, name), "__module__",
+                         "pflare_tpu_torch")     # C_POINT, F_POINT: ints
+        assert module.startswith("pflare_tpu_torch"), name
+    assert pflare_tpu_torch.read_gmsh is tprob.read_gmsh
+    assert pflare_tpu_torch.ELL.__module__ == "pflare_tpu_torch.sparse.ell"
+    assert pflare_tpu_torch.build_inverse.__module__ == \
+        "pflare_tpu_torch.inverse.build"
+
+
 def test_compiled_sources_lie_inside_the_port():
     """Every source the port compiles or opens at runtime is its own: the
     host C++ kernels and the CUDA sources, none of the JAX package's."""
