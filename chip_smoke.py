@@ -99,7 +99,7 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     (its own plan, the same install) within phase 10's rule; three
     installs on drifting seeded matrices, each converging with its true
     residual by scipy; the plan alone card against CPU (1e-12) on
-    ``PHASE12_SETS`` at 128^2; (b) at 1024^2, f32, phase 11 (b)'s
+    ``PHASE12_SETS`` at 128^2 (the LU set at ten levels); (b) at 1024^2, f32, phase 11 (b)'s
     PCAIR: plan build, first and warm install of phase 11's matrix
     against its host re-setup + upload, the plan's device bytes and the
     peak device memory, ``solve_device`` with 10 Richardson iterations
@@ -156,7 +156,31 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     diagonally scaled polynomials and diffusion; triangles, tets and a
     twisted-annulus hex mesh) in f64, card against its CPU twin
     (``PCAIR.on`` before the upload): residual histories within phase
-    10's rule, the iterations beside the reference's caps.
+    10's rule, the iterations beside the reference's caps;
+15. the row mesh (``pflare_tpu_torch.parallel``, every shard on the
+    card): (a) ``setup(A, mesh=make_mesh(8))`` at 512^2 f64 against the
+    serial setup, for the bench options and POWER inverses with the
+    ideal W (``PHASE15_SETS``): on the curved-velocity sibling, which
+    puts no entry on a decision's edge, markers equal on every level, R
+    within 1e-11 of its largest entry, every W/Z/AP/RAP product
+    row-sharded (``MESH_PRODUCT_LOG``) and equal right GMRES
+    iterations at rtol 1e-10; on the main path's matrix the same until
+    the two part, each parted row a one-point-W tie (the host's
+    products round with FMA, the card's do not); the agglomeration
+    schedule and the exchanges printed; (b) phase 7's 2048^2 f32
+    hierarchy through ``solve_device(b, max_it=10, mesh=make_mesh(4))``
+    against the serial ``solve_device`` (serial, sharded, sharded,
+    serial), with the counters at 0 before each: norms within 1e-5 of
+    the serial ones, both kernels launched on the shards, every
+    ``HaloELL`` operator exchanging with its neighbours alone, the
+    exchanges an iteration by level, the DIA and banded shard blocks of
+    the top and levels 0-1 against their plain versions, wall and
+    device busy time under torch.profiler against the serial solve, a
+    level-0 DIA and a banded shard block timed by ``measure``; (c) phase
+    14 (a)'s FV hierarchy on 4 shards: the top a ``HaloELL`` on the
+    banded kernel, neighbour-only exchanges on the top and the
+    repartitioned levels, x within 1e-5 of the serial solve's, the true
+    residual <= 1e-4.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -423,15 +447,18 @@ def main() -> int:
 
     def plain_matvec(M, x):
         if isinstance(M, DIA):
-            return tdia.dia_spmv_plain(M.data, M.offsets, x, *M.shape)
-        return tbanded.banded_spmv_plain(M.data, M.lcols, x, M.n, M.w, M.W)
+            return tdia.dia_spmv_plain(M.data, M.offsets, x, *M.shape,
+                                       M.col_base)
+        return tbanded.banded_spmv_plain(M.data, M.lcols, x, M.n, M.w, M.W,
+                                         M.col_base)
 
     def copy_op(M, dtype=None):
         """A copy of a device operator in its own storage, in ``dtype``."""
         data = M.data.to(dtype or M.dtype, copy=True)
         if isinstance(M, DIA):
-            return DIA(M.offsets, data, M.shape)
-        return BandedSpMV(data, M.lcols.clone(), M.n, M.n_cols, M.w, M.W)
+            return DIA(M.offsets, data, M.shape, M.col_base)
+        return BandedSpMV(data, M.lcols.clone(), M.n, M.n_cols, M.w, M.W,
+                          M.col_base)
 
     def measure(label, op):
         """Kernel, plain version and the cuSPARSE CSR product ``A @ x`` of
@@ -441,8 +468,11 @@ def main() -> int:
         the L2, so the operator comes from device memory, as in a
         V-cycle, while x stays in L2, as it does there.  The bound is the
         larger of bytes = stored slots * (sizeof T + index bytes, 4 for
-        banded, 0 for DIA) + (n_cols + n) * sizeof T over 3.35 TB/s and
-        2 FLOPs per nonzero over 67 TFLOP/s."""
+        banded, 0 for DIA) + (x entries read + n) * sizeof T over 3.35
+        TB/s and 2 FLOPs per nonzero over 67 TFLOP/s.  The x entries read
+        are those the offsets or the band cover, n + the offsets' spread
+        or n + 2w, at most n_cols (a shard block reads only that part of
+        its extended window)."""
         host = op.to_scipy()
         n, n_cols = op.shape
         T = op.data.element_size()
@@ -469,7 +499,10 @@ def main() -> int:
                      for _ in range(copies)]
             tell_ms = graph_ms(torch, [lambda M=M: M.matvec(x)
                                        for M in tells])
-        t_bytes = (op_bytes + (n + n_cols) * T) / HBM_BYTES_S * 1e3
+        span = (max(op.offsets) - min(op.offsets) if not banded
+                else 2 * op.w)
+        t_bytes = (op_bytes + (n + min(n + span, n_cols)) * T) \
+            / HBM_BYTES_S * 1e3
         t_ops = 2 * host.nnz / FP32_FLOPS * 1e3
         row = {
             "shape": f"{label}: {n} x {n_cols}, K={op.data.shape[0]}"
@@ -504,24 +537,27 @@ def main() -> int:
         require(found, f"{prefix}: level 0 has no DIA operator")
         return found
 
-    def profile_solve(pcx, bx, label):
-        """One more warm solve under torch.profiler: each kernel's calls
-        and device time in it, and the device's busy and idle shares.
-        Device activity alone: the host ops' events are not read, and with
-        them the profiled 2048^2 lAIR fcf solve took 85 s in all on the
-        H100's host, 3.4 s of it the solve."""
+    def profile_solve(pcx, bx, label, **kw):
+        """One more warm solve under torch.profiler (``kw`` to
+        ``solve_device``: a mesh): each kernel's calls and device time in
+        it, and the device's busy and idle shares.  Device activity alone:
+        the host ops' events are not read, and with them the profiled
+        2048^2 lAIR fcf solve took 85 s in all on the H100's host, 3.4 s of
+        it the solve."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             device_sync_read(*pcx.solve_device(bx, max_it=10,
-                                               ksp="richardson"))
+                                               ksp="richardson", **kw))
             t_prof = time.perf_counter() - t0
         found = {"dia": [0, 0.0], "banded": [0, 0.0]}
         busy_us = 0.0
+        ops = []
         for evt in prof.key_averages():
             if evt.device_type == DeviceType.CUDA:  # kernels, copies, sets
                 busy_us += evt.self_device_time_total
+                ops.append((evt.self_device_time_total, evt.count, evt.key))
             for kind in found:
                 if f"{kind}_spmv_kernel" in evt.key:
                     found[kind][0] += evt.count
@@ -531,8 +567,13 @@ def main() -> int:
               f"{1 - busy_us / 1e6 / t_prof:.1%}; " + ", ".join(
                   f"{kind} kernel {c} calls, {t / 1e3:.3f} ms, "
                   f"{t / c if c else float('nan'):.2f} us a call"
-                  for kind, (c, t) in found.items()))
-        return {kind: t / c if c else None for kind, (c, t) in found.items()}
+                  for kind, (c, t) in found.items())
+              + "; top device ops: " + "; ".join(
+                  f"{key[:60]} {t / 1e3:.3f} ms in {c}"
+                  for t, c, key in sorted(ops, reverse=True)[:5]))
+        out = {kind: t / c if c else None for kind, (c, t) in found.items()}
+        out["wall_s"], out["busy_ms"] = t_prof, busy_us / 1e3
+        return out
 
     def banded_targets(dhier):
         """The largest banded A_ff or A_fc, where one is banded (at 2048^2
@@ -732,7 +773,7 @@ def main() -> int:
     # ~~~~~~~~~~ 10. the AIR options ~~~~~~~~~~
     # Phases 10 (b), 11 (b) and 12 (b) run at 1024^2: their 2048^2 host
     # setups took most of the command's time limit and swung between calls
-    del pc2k, dh2k, x2k, ops2k, dia_2k
+    del dh2k, x2k, ops2k, dia_2k     # phase 15 (b) shards pc2k
     A1k = tpf.adv_diff_2d(1024)
     options_runs, t_phase10 = phase10(
         np, sp, torch, tpf, tdia, tbanded, dev, A1k, check, measure, timed,
@@ -756,11 +797,22 @@ def main() -> int:
     print(f"# phase 13: {t_phase13:.3f} s")
 
     # ~~~~~~~~~~ 14. unstructured meshes ~~~~~~~~~~
-    del A2k
-    mesh_runs, t_phase14 = phase14(np, sp, torch, tpf, tdia, tbanded, dev,
-                                   check, measure, timed, profile_solve,
-                                   setup_breakdown)
+    mesh_runs, t_phase14, fv = phase14(np, sp, torch, tpf, tdia, tbanded,
+                                       dev, check, measure, timed,
+                                       profile_solve, setup_breakdown)
     print(f"# phase 14: {t_phase14:.3f} s")
+
+    # ~~~~~~~~~~ 15. the row mesh ~~~~~~~~~~
+    row_mesh, t_phase15 = phase15(np, torch, tpf, tdia, tbanded, dev, A512,
+                                  pc2k, A2k, b2k, fv, measure, plain_matvec,
+                                  profile_solve, err)
+    del pc2k, A2k, fv
+    print(f"# phase 15: {t_phase15:.3f} s")
+
+    # last, so that no phase's host timings or memory change with it
+    from pflare_tpu_torch.utils.hostmem import tune_host_malloc
+    print(f"# tune_host_malloc applied: {tune_host_malloc()} (glibc keeps "
+          "large blocks on the heap across setups)")
 
     kernels = []
     for group, kind, site in (("aligned", "dia", DIA_SITES["aligned"]),
@@ -803,6 +855,7 @@ def main() -> int:
                                  ("device_resetup", resetup_runs),
                                  ("device_setup", setup_runs),
                                  ("unstructured", mesh_runs))},
+            "mesh": row_mesh[kind],
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1492,7 +1545,9 @@ PHASE12_SETS = (
                                        coarsest_matrix_free_polys=True,
                                        coarsest_poly_order=10)),
     ("constrain_z", dict(constrain_z=True)),
-    ("LU coarse", dict(coarsest_inverse_type="LU")),
+    # ten levels: a 575-row coarse matrix, where five leave 3,874 rows,
+    # whose Gauss-Jordan the CPU twin takes minutes over
+    ("LU coarse", dict(coarsest_inverse_type="LU", max_levels=10)),
     ("auto-truncated", dict(auto_truncate_start_level=2,
                             auto_truncate_tol=0.5, coarsest_poly_order=12)),
 )
@@ -1625,9 +1680,10 @@ def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, Abig, handoff):
     A128 = tpf.adv_diff_2d(128)
     A128_2 = perturbed(np, A128, 8)
     for label, set_kw in PHASE12_SETS:
-        o = tpf.AIROptions().replace(reuse_sparsity=True, reuse_amount=3,
-                                     reuse_poly_coeffs=True, max_levels=5,
-                                     **set_kw)
+        o = tpf.AIROptions().replace(**({"reuse_sparsity": True,
+                                         "reuse_amount": 3,
+                                         "reuse_poly_coeffs": True,
+                                         "max_levels": 5} | set_kw))
         pcs = tpf.PCAIR(o, dtype=torch.float64, device=dev).setup(A128)
         cpu = pcs.on("cpu")
         (dh, n_s) = count_syncs(pcs.build_device_resetup(), A128_2)
@@ -1635,9 +1691,9 @@ def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, Abig, handoff):
         diff, where = max_rel_diff(np, dh.to_scipy(), dh_cpu.to_scipy())
         print(f"# 128^2 f64 device re-setup plan, {label}: card against CPU "
               f"{diff:.3e} ({where}), synchronisations {n_s}")
-        # the card's atomic segment sums round otherwise than the CPU's
-        # ordered ones, and the difference grows down the levels (to
-        # 5.6e-12 at level 7 of a 12-level constrained hierarchy at 48^2)
+        # the segment sums, the constraints' sums and a dense coarse
+        # inverse add in the CPU's order on the card; the SVD least
+        # squares of lAIR and SAI round otherwise
         require(diff <= 1e-11, f"128^2 {label}: the card's plan differs from "
                 f"the CPU's by {diff:.3e} at {where}")
     t_a = time.perf_counter() - t_phase
@@ -2125,8 +2181,8 @@ PHASE14_SETS = (
 def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
             profile_solve, setup_breakdown):
     """Unstructured meshes on the card (see the module docstring, phase
-    14).  Returns the runs ({label: {"launches", "iterations"}}) and the
-    phase's seconds."""
+    14).  Returns the runs ({label: {"launches", "iterations"}}), the
+    phase's seconds and (a)'s FV matrix, RHS and host-built PCAIR."""
     import shutil
     import tempfile
 
@@ -2254,7 +2310,7 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
         print(f"# {label} host setup phases: {setup_breakdown()}")
         profile_solve(pc, b, f"{label} host-built")
         top = dh.top
-        del pc, dh, res
+        del dh, res
 
         pcd = tpf.PCAIR(opts, dtype=torch.float32, device=dev)
         t0 = time.perf_counter()
@@ -2267,11 +2323,11 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
         solve(f"{label} setup_device", pcd, A, b, ksp)
         profile_solve(pcd, b, f"{label} device-built")
         del pcd
-        return A, b, top, launches
+        return A, b, top, launches, pc
 
     try:
         # (a) FV on 2 x 1024^2 triangles: the top level on the banded kernel
-        A, b, top, launches = large_cell(
+        A, b, top, launches, pc = large_cell(
             "FV", PHASE14_M["fv"], tpf.fv_upwind_advection,
             tpf.AIROptions(a_lump=True, reorder="auto"), "richardson")
         require(isinstance(top, BandedSpMV), f"FV: the reordered top A is a "
@@ -2282,14 +2338,15 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
         check(top, "banded", f"FV m={PHASE14_M['fv']} top A banded "
               f"W={top.W}")
         timed["banded"].append(measure(f"FV m={PHASE14_M['fv']} top A", top))
-        del A, b, top
+        fv = (A, b, pc)     # phase 15 (c) shards this hierarchy
+        del A, b, top, pc
 
         # (b) DG(1) on 2 x 512^2 triangles: its V-cycle diverges as a
         # stationary iteration at this size (Richardson's norms grow by
         # ~1.4 an iteration from the third on, card and CPU alike, with
         # every option set tried), so the solve that must converge is
         # right GMRES; the Richardson run is printed for the record
-        A, b, _, _ = large_cell("DG(1)", PHASE14_M["dg1"],
+        A, b, _, _, _ = large_cell("DG(1)", PHASE14_M["dg1"],
                                 tpf.dg1_upwind_advection,
                                 tpf.AIROptions(reorder="auto"), "gmres")
 
@@ -2391,7 +2448,323 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
               f"{time.perf_counter() - t_phase - t_ab:.3f} s; {peak_rss()}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return runs, time.perf_counter() - t_phase
+    return runs, time.perf_counter() - t_phase, fv
+
+
+# ~~~~~~~~~~ phase 15: the row mesh ~~~~~~~~~~
+
+# (label, options over bench_options) of phase 15 (a): the bench options
+# (one-point W: products Z, AP, RAP) and POWER inverses with the ideal W
+# (the TSQR, and the W product)
+PHASE15_SETS = (
+    ("bench", {}),
+    ("POWER, ideal W", dict(inverse_type="POWER",
+                            coarsest_inverse_type="POWER",
+                            one_point_classical_prolong=False)))
+PHASE15_SHARDS = {"setup": 8, "solve": 4}
+PHASE15_CURVED = 512       # (a)'s grid side, as A512's
+MESH_HISTORY_RTOL = 1e-5   # (b), (c): sharded against serial norms, f32
+
+
+def _pattern(M):
+    """M's sparsity pattern, as ones."""
+    P = M.copy()
+    P.data[:] = 1.0
+    return P
+
+
+def phase15(np, torch, tpf, tdia, tbanded, dev, A512, pc2k, A2k, b2k, fv,
+            measure, plain_matvec, profile_solve, err):
+    """The row mesh on the card (see the module docstring, phase 15).
+    Returns {"dia", "banded"}: each kernel's launches an iteration of the
+    sharded 2048^2 solve, its per-shard shapes and a shard block's timing;
+    and the phase's seconds."""
+    from pflare_tpu_torch.air import operators as tops
+    from pflare_tpu_torch.parallel import HaloELL, make_mesh
+    from pflare_tpu_torch.parallel.mesh import agglomeration_schedule
+    from pflare_tpu_torch.sparse import DIA, BandedSpMV
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    require(dev.type == "cuda", "phase 15 runs on the card")
+    t_phase = time.perf_counter()
+
+    def zero_counts():
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+
+    def counts():
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+
+    def timed_solve(pc, b, **kw):
+        zero_counts()
+        t0 = time.perf_counter()
+        x, norms = pc.solve_device(b, max_it=10, ksp="richardson", **kw)
+        device_sync_read(x, norms)
+        return x, norms.cpu().numpy(), time.perf_counter() - t0, counts()
+
+    def sharded_ops(st):
+        """(label, HaloELL or RowShardedOp) of a sharded solve form."""
+        ops = [("top", st.top)]
+        for i, lev in enumerate(st.levels):
+            seen = set()
+            for key, val in lev.items():
+                op = getattr(val, "mat", val)
+                if hasattr(op, "blocks") and id(op) not in seen:
+                    seen.add(id(op))
+                    ops.append((f"level {i} {key}", op))
+        return ops
+
+    def describe(st):
+        lines = []
+        for label, op in sharded_ops(st):
+            kinds = sorted({type(b).__name__ for b in op.blocks if b})
+            lines.append(f"{label} {type(op).__name__} {op.active}/"
+                         f"{op.mesh.size} shards x {op.w} rows {kinds}")
+        return "; ".join(lines)
+
+    def check_blocks(op, label):
+        """Each DIA or banded shard block of ``op`` against its plain
+        version on its own source vector (the extended window of a
+        HaloELL, the whole vector otherwise): the kernels on the shapes
+        of the sharded path."""
+        x = torch.as_tensor(np.random.default_rng(9).standard_normal(
+            op.n_pad), dtype=op.dtype, device=dev)
+        src = op._sources(x)
+        n = 0
+        for s, blk in enumerate(op.blocks):
+            if not isinstance(blk, (DIA, BandedSpMV)):
+                continue
+            y, ref = blk.matvec(src[s]), plain_matvec(blk, src[s])
+            torch.cuda.synchronize()
+            rel = float((y - ref).norm() / ref.norm())
+            name = str(blk.dtype).split(".")[-1]
+            require(rel <= TOL[name], f"phase 15 {label} shard {s}: kernel "
+                    f"vs plain relative error {rel:.3e}")
+            group = "padded" if isinstance(blk, DIA) else "banded"
+            err[group] = max(err[group], float((y - ref).abs().max()))
+            n += 1
+        return n
+
+    def neighbour_only(mesh, label):
+        kinds = mesh.traffic(label)
+        return bool(kinds) and set(kinds) == {"ppermute"}
+
+    # (a) the distributed setup at 512^2, f64, 8 shards: every level equal
+    # on the curved-velocity sibling, which puts no entry on a decision's
+    # edge; on the main path's matrix equal until a one-point-W tie
+    t_a = time.perf_counter()
+    curved = tpf.adv_diff_2d(PHASE15_CURVED, curved_velocity=True)
+    b512 = np.random.default_rng(3).standard_normal(A512.shape[0])
+    for matrix, A, (label, extra) in [("curved", curved, st_)
+                                      for st_ in PHASE15_SETS] + [
+            ("main path", A512, PHASE15_SETS[0])]:
+        opts = bench_options(tpf).replace(**extra)
+        ser = tpf.PCAIR(opts, dtype=torch.float64, device=dev)
+        t0 = time.perf_counter()
+        ser.setup(A)
+        t_ser = time.perf_counter() - t0
+        mesh = make_mesh(PHASE15_SHARDS["setup"])
+        tops.MESH_PRODUCT_LOG = log = []
+        try:
+            dis = tpf.PCAIR(opts, dtype=torch.float64, device=dev)
+            t0 = time.perf_counter()
+            dis.setup(A, mesh=mesh)
+            t_dis = time.perf_counter() - t0
+        finally:
+            tops.MESH_PRODUCT_LOG = None
+        hs, hd = ser.hierarchy, dis.hierarchy
+        tag = f"phase 15 (a) {matrix} {label}"
+        parted, r_rel = None, 0.0
+        for i, (ls, ld) in enumerate(zip(hs.levels, hd.levels)):
+            if not (np.array_equal(ls.fine, ld.fine)
+                    and np.array_equal(ls.coarse, ld.coarse)):
+                parted = f"level {i} CF splitting"
+                break
+            require(ls.R.nnz == ld.R.nnz, f"{tag}: level {i} R nnz "
+                    f"{ld.R.nnz} against {ls.R.nnz}")
+            r_rel = max(r_rel, abs(ls.R - ld.R).max() / abs(ls.R).max())
+            rows = np.nonzero(np.diff((_pattern(ls.P) != _pattern(ld.P))
+                                      .tocsr().indptr))[0]
+            if len(rows):
+                # each differing P row is a fine row whose two largest
+                # |A_fc| entries tie: the one-point W's argmax
+                fr = np.searchsorted(ls.fine, rows)
+                require(np.array_equal(ls.fine[fr], rows), f"{tag}: level "
+                        f"{i} P differs on coarse rows")
+                for r in fr:
+                    top = np.sort(np.abs(ls.A_fc[r].data))[-2:]
+                    require(len(top) == 2 and top[1] - top[0]
+                            <= 1e-12 * top[1], f"{tag}: level {i} P row "
+                            f"{ls.fine[r]} differs without a tie")
+                parted = (f"level {i} one-point W: {len(rows)} rows, each "
+                          "a tie of |A_fc|")
+                break
+        require(r_rel <= 1e-11, f"{tag}: R differs by {r_rel:.3e} of its "
+                "largest entry")
+        names = {name for name, _ in log}
+        want = {"Z", "AP", "RAP"} | ({"W"} if "one_point_classical_prolong"
+                                     in extra else set())
+        require(want <= names and all(sharded for _, sharded in log),
+                f"{tag}: products {log}")
+        traffic = {name: mesh.traffic(name) for name in sorted(names)}
+        schedule = agglomeration_schedule(
+            hd, [lv.n for lv in hd.levels], mesh.size, dis.options)
+        res_s = ser.solve(b512, side="right", rtol=1e-10, max_it=60)
+        res_d = dis.solve(b512, side="right", rtol=1e-10, max_it=60)
+        require(res_s.converged and res_d.converged, f"{tag}: right GMRES "
+                "did not converge")
+        if matrix == "curved":
+            require(parted is None and hs.n_levels == hd.n_levels
+                    and res_s.iterations == res_d.iterations,
+                    f"{tag}: parted at {parted}, right GMRES "
+                    f"{res_d.iterations} its against {res_s.iterations}")
+        print(f"# {tag}: {A.shape[0]} rows f64, {hd.n_levels} levels "
+              f"{[lv.n for lv in hd.levels]} (serial {hs.n_levels}); serial "
+              f"setup {t_ser:.3f} s, {mesh.size}-shard setup {t_dis:.3f} s; "
+              + ("markers equal on every level" if parted is None else
+                 f"equal until {parted}")
+              + f", R within {r_rel:.3e} of its largest entry until then; "
+              f"products {sorted(names)} ({len(log)}, all row-sharded), "
+              f"their exchanges {traffic}; Luby rounds "
+              f"{mesh.traffic('luby')}; agglomeration schedule {schedule}; "
+              f"right GMRES to rtol 1e-10: {res_d.iterations} its, serial "
+              f"{res_s.iterations}", flush=True)
+        del ser, dis
+    t_a = time.perf_counter() - t_a
+
+    # (b) the main path sharded: phase 7's 2048^2 f32 hierarchy, 4 shards
+    t_b = time.perf_counter()
+    mesh = make_mesh(PHASE15_SHARDS["solve"])
+    t0 = time.perf_counter()
+    st = pc2k._distributed_state(mesh)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    print(f"# phase 15 (b) 2048^2 f32 on {mesh.size} shards: sharded in "
+          f"{t_shard:.3f} s, agglomeration schedule {st.schedule}; "
+          f"{describe(st)}", flush=True)
+    n_checked = sum(check_blocks(op, label) for label, op in sharded_ops(st)
+                    if label == "top" or label.startswith("level 0 ")
+                    or label.startswith("level 1 "))
+    require(n_checked > 0, "phase 15 (b): no DIA or banded shard block")
+    runs, traffic = {}, None
+    for tag, kw in (("serial", {}), ("mesh", {"mesh": mesh}),
+                    ("mesh", {"mesh": mesh}), ("serial", {})):
+        mesh.reset_log()
+        runs.setdefault(tag, []).append(timed_solve(pc2k, b2k, **kw))
+        if tag == "mesh" and traffic is None:
+            traffic = {label: mesh.traffic(label)
+                       for label, _ in sharded_ops(st)}
+    (x_s, n_s, _, l_s), (x_m, n_m, _, l_m) = runs["serial"][0], \
+        runs["mesh"][0]
+    walls = {tag: " / ".join(f"{r[2]:.4f}" for r in rs)
+             for tag, rs in runs.items()}
+    require(np.all(np.abs(n_m - n_s) <= MESH_HISTORY_RTOL * n_s),
+            f"phase 15 (b): sharded norms {n_m / n_s[0]} against serial "
+            f"{n_s / n_s[0]}")
+    require(l_m["dia"] > 0 and l_m["banded"] > 0,
+            f"phase 15 (b): a kernel was not launched on the shards: {l_m}")
+    halo = [label for label, op in sharded_ops(st)
+            if isinstance(op, HaloELL)]
+    require(halo and all(traffic[label] and set(traffic[label])
+                         == {"ppermute"} for label in halo),
+            "phase 15 (b): a HaloELL operator exchanged beyond its "
+            "neighbours: " + str({label: traffic[label] for label in halo}))
+    per_level = {}
+    for label, kinds in traffic.items():
+        key = label.rsplit(" ", 1)[0] if label != "top" else "top"
+        for kind, (calls, nbytes) in kinds.items():
+            c, b = per_level.get((key, kind), (0, 0))
+            per_level[(key, kind)] = (c + calls / 10, b + nbytes / 10)
+    true_m = float(np.linalg.norm(A2k @ x_m.double().cpu().numpy() - b2k)
+                   / np.linalg.norm(b2k))
+    true_s = float(np.linalg.norm(A2k @ x_s.double().cpu().numpy() - b2k)
+                   / np.linalg.norm(b2k))
+    print(f"# phase 15 (b) Richardson 10 its: wall to completion serial "
+          f"{walls['serial']} s, sharded {walls['mesh']} s; launches "
+          f"serial {l_s}, sharded {l_m} (an iteration dia "
+          f"{l_m['dia'] / 10:.1f} against {l_s['dia'] / 10:.1f}, banded "
+          f"{l_m['banded'] / 10:.1f} against {l_s['banded'] / 10:.1f}); "
+          f"norms equal within {np.max(np.abs(n_m - n_s) / n_s):.3e}; "
+          f"true residual sharded {true_m:.3e}, serial {true_s:.3e}; "
+          f"shard blocks checked {n_checked}; exchanges a tenth of the "
+          "solve (10 V-cycles, 11 top products) "
+          + ", ".join(f"{key} {kind} {c:.1f} calls {b / 1e6:.3f} MB"
+                      for (key, kind), (c, b) in sorted(per_level.items())),
+          flush=True)
+    prof_m = profile_solve(pc2k, b2k, "phase 15 (b) 2048^2 sharded",
+                           mesh=mesh)
+    prof_s = profile_solve(pc2k, b2k, "phase 15 (b) 2048^2 serial")
+    out = {}
+    for kind, cls in (("dia", DIA), ("banded", BandedSpMV)):
+        shapes = sorted({f"{op.w} rows x K={blk.data.shape[0]}"
+                         for _, op in sharded_ops(st) for blk in op.blocks
+                         if isinstance(blk, cls)})
+        out[kind] = {"shards": mesh.size, "schedule": st.schedule,
+                     "launches_per_iteration": l_m[kind] / 10,
+                     "serial_launches_per_iteration": l_s[kind] / 10,
+                     "shard_shapes": shapes,
+                     "solve_us_per_call": prof_m[kind],
+                     "wall_s": prof_m["wall_s"],
+                     "busy_ms": prof_m["busy_ms"],
+                     "serial_wall_s": prof_s["wall_s"],
+                     "serial_busy_ms": prof_s["busy_ms"]}
+    # a shard block of the top A (the main path's DIA shape, K = 3) and
+    # the widest banded block; each reads of its window only what its
+    # offsets or band cover
+    blocks = [(label, blk) for label, op in sharded_ops(st)
+              for blk in op.blocks]
+    for kind, cls in (("dia", DIA), ("banded", BandedSpMV)):
+        found = [(label, blk) for label, blk in blocks
+                 if isinstance(blk, cls)]
+        if not found:
+            continue
+        label, blk = max(found, key=lambda lb: lb[1].data.numel())
+        out[kind]["timing"] = measure(f"mesh {label} shard block", blk)
+    del st, runs, x_s, x_m
+    t_b = time.perf_counter() - t_b
+
+    # (c) unstructured: phase 14's FV matrix and hierarchy, 4 shards
+    t_c = time.perf_counter()
+    A, b, pc = fv
+    mesh = make_mesh(PHASE15_SHARDS["solve"])
+    st = pc._distributed_state(mesh)
+    require(isinstance(st.top, HaloELL) and all(
+        isinstance(blk, BandedSpMV) for blk in st.top.blocks),
+        "phase 15 (c): the FV top operator is not a HaloELL on the banded "
+        f"kernel ({describe(st)})")
+    check_blocks(st.top, "FV top")
+    x_s, n_s, t_s, _ = timed_solve(pc, b)
+    mesh.reset_log()
+    x_m, n_m, t_m, l_m = timed_solve(pc, b, mesh=mesh)
+    rel_x = float((x_m - x_s).norm() / x_s.norm())
+    true_m = float(np.linalg.norm(A @ x_m.double().cpu().numpy() - b)
+                   / np.linalg.norm(b))
+    true_s = float(np.linalg.norm(A @ x_s.double().cpu().numpy() - b)
+                   / np.linalg.norm(b))
+    reparted = [i + 1 for i, lv in enumerate(pc.hierarchy.levels)
+                if lv.coarse_order is not None and i + 1 < len(st.levels)]
+    rep_labels = [label for label, op in sharded_ops(st)
+                  if isinstance(op, HaloELL) and any(
+                      label.startswith(f"level {i} ") for i in reparted)]
+    require(neighbour_only(mesh, "top") and all(
+        neighbour_only(mesh, label) for label in rep_labels),
+        "phase 15 (c): exchanges beyond the neighbours on the top or a "
+        "repartitioned level")
+    require(np.all(np.abs(n_m - n_s) <= MESH_HISTORY_RTOL * n_s)
+            and rel_x <= MESH_HISTORY_RTOL and true_m <= 1e-4
+            and l_m["banded"] > 0,
+            f"phase 15 (c): sharded against serial x {rel_x:.3e}, true "
+            f"residuals {true_m:.3e} / {true_s:.3e}, launches {l_m}")
+    print(f"# phase 15 (c) FV m={PHASE14_M['fv']} ({A.shape[0]} DoF) on "
+          f"{mesh.size} shards: {describe(st)}; repartitioned levels "
+          f"{reparted}, their HaloELL operators {len(rep_labels)} "
+          f"neighbour-only; Richardson 10 its sharded {t_m:.4f} s (first "
+          f"call), serial {t_s:.4f} s; x within {rel_x:.3e}, true residual "
+          f"sharded {true_m:.3e}, serial {true_s:.3e}; launches {l_m}; "
+          f"exchanges {dict(mesh.traffic())}", flush=True)
+    t_c = time.perf_counter() - t_c
+    print(f"# phase 15 (a) {t_a:.3f} s, (b) {t_b:.3f} s, (c) {t_c:.3f} s")
+    return out, time.perf_counter() - t_phase
 
 
 def _timed_solve(pcx, b, kw):

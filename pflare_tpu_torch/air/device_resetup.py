@@ -10,14 +10,19 @@ truncation probe -- is one function from the new matrix values to a new
 host once and uploads them once; each call uploads the new values and
 runs the function as torch ops on the plan's device: gathers, products
 and segment sums, the batched SVD least squares of the SAI/ISAI and lAIR
-re-solves and of the constraints, ``inv_ex`` for a dense coarse inverse.
+re-solves and of the constraints, Gauss-Jordan for a dense coarse
+inverse (``dense_inverse``).
 
 Nothing is read back but the truncation probe's quality.  On a CUDA
 device each batched SVD also reads its convergence flag back (one
-synchronisation a chunk: SAI/ISAI, lAIR and the constraints only), and
-the segment sums are atomic adds (``sparse/spgemm.py::segment_sum``).
-Nothing falls back to the host re-setup: a configuration the plan cannot
-rebuild raises ``ValueError`` when the plan is built.
+synchronisation a chunk: SAI/ISAI, lAIR and constraints with more than
+one null vector only).  Each segment sum adds its terms one after the
+other in the host's order (``sparse/spgemm.py::segment_sum``), and the
+constraints' small sums, the null-space smoothing's dots and the dense
+inverse run in a fixed order, so a card's install equals the CPU's but
+for those SVDs.  Nothing falls back to the host re-setup: a
+configuration the plan cannot rebuild raises ``ValueError`` when the
+plan is built.
 
 Polynomial coefficients are those of the setup the plan was built from
 (the reference's ``reuse_poly_coeffs`` regime).  The rebuilt operators
@@ -61,7 +66,8 @@ from ..sparse.dtypes import numpy_dtype
 from ..sparse.ell import ELL
 from ..sparse.pattern import SparsityPattern
 from ..sparse.spgemm import (FixedSparsityPolyPlan, build_spgemm_plan,
-                             index_tensor, plan_execute, poly_execute,
+                             index_tensor, ordered_dot, ordered_sum,
+                             plan_execute, poly_execute, run_lengths,
                              segment_sum, take)
 from .constrain import SMOOTH_ITS
 from .fullspace import _map_both, _map_cols, _map_rows, make_op
@@ -203,14 +209,16 @@ def _match_arrays(src: sp.csr_matrix, dst: sp.csr_matrix, lump: bool,
         srows = _rows(src)[outside]
         ok = dpos[srows] >= 0
         out["lump_src"] = up(outside[ok])
-        out["lump_dst"] = up(dpos[srows[ok]])
+        # rows ascend, so the diagonals the lumps land on do too
+        out["lump_len"] = up.count(run_lengths(dpos[srows[ok]], dst.nnz,
+                                               up.device))
     return out
 
 
-def _exec_match(m: dict, vals, n_out: int):
+def _exec_match(m: dict, vals):
     out = take(vals, m["src"])
     if "lump_src" in m:
-        out = out + segment_sum(vals[m["lump_src"]], m["lump_dst"], n_out)
+        out = out + segment_sum(vals[m["lump_src"]], m["lump_len"])
     return out
 
 
@@ -223,7 +231,6 @@ def _exec_newton_poly(tables: dict, wr, wi, a_flat, tol_zero: float):
     as the monomial path; the root schedule is static (reference:
     src/Gmres_Poly_Newtonk.kokkos.cxx:15; conjugate pairs in real
     arithmetic as inverse/build.py)."""
-    nnz_s = tables["nnz_s"]
     T = tables["diag"].to(a_flat.dtype)          # the identity on S
     M = torch.zeros_like(T)
     k = len(wr)
@@ -234,18 +241,18 @@ def _exec_newton_poly(tables: dict, wr, wi, a_flat, tol_zero: float):
                 i += 1
                 continue
             M = M + T / wr[i]
-            T = T - plan_execute(tables["step"], T, a_flat, nnz_s) / wr[i]
+            T = T - plan_execute(tables["step"], T, a_flat) / wr[i]
             i += 1
         else:
             s2 = wr[i] ** 2 + wi[i] ** 2
             if s2 < tol_zero:
                 i += 2
                 continue
-            TA = plan_execute(tables["step"], T, a_flat, nnz_s)
+            TA = plan_execute(tables["step"], T, a_flat)
             T2 = 2.0 * wr[i] * T - TA
             M = M + T2 / s2
             if i <= k - 3:
-                T = T - plan_execute(tables["step"], T2, a_flat, nnz_s) / s2
+                T = T - plan_execute(tables["step"], T2, a_flat) / s2
             i += 2
     if k >= 1 and wi[k - 1] == 0.0 and abs(wr[k - 1]) > tol_zero:
         M = M + T / wr[k - 1]
@@ -377,6 +384,36 @@ def _inverse_plan(inv: Inverse, itype, diag_scale: bool, M: sp.csr_matrix,
     return meta, arrs
 
 
+def dense_inverse(D):
+    """D^-1 by Gauss-Jordan elimination in place with partial pivoting
+    (the first largest |entry| of the column), one pivot at a time: each
+    entry takes one product and one difference a step, each rounded on
+    its own, so a card computes the CPU's bits, where a library inverse
+    blocks and sums in an order of its own on each device.  Nothing is
+    read back (the pivot rows are device indices); a zero pivot gives
+    non-finite entries, as ``inv_ex`` does not raise either."""
+    n = D.shape[0]
+    M = D.clone()
+    idx = torch.arange(n, device=D.device)
+    swaps = []
+    for k in range(n):
+        p = k + torch.argmax(M[k:, k].abs())
+        pair = torch.stack([idx[k], p])
+        M[pair] = M[pair.flip(0)]
+        swaps.append(pair)
+        inv_piv = 1.0 / M[k, k]
+        # no scalar stores into one entry: a Python float stored into a
+        # 0-d slice of a card tensor is a host-to-device copy
+        at_k = idx == k
+        f = torch.where(at_k, 0.0, M[:, k])
+        r = torch.where(at_k, inv_piv, M[k] * inv_piv)
+        M[:, k] = 0.0
+        M[k] = r
+        M -= f[:, None] * r[None, :]
+    for pair in reversed(swaps):      # the row swaps undone on the columns
+        M[:, pair] = M[:, pair.flip(0)]
+    return M
+
 def _exec_inverse(meta: _InvMeta, arrs: dict, m_flat, ext_op):
     """(the device Inverse, its values in compressed form): the diagonal
     or the assembled values on their pattern, for the products that reuse
@@ -388,8 +425,8 @@ def _exec_inverse(meta: _InvMeta, arrs: dict, m_flat, ext_op):
         diag = take(dinv, arrs["place"]) if "place" in arrs else dinv
         return Inverse("diagonal", diag=diag), dinv
     if meta.kind == "dense":
-        D = take(m_flat, arrs["dense"])
-        return Inverse("dense", mat=torch.linalg.inv_ex(D)[0]), None
+        return Inverse("dense",
+                       mat=dense_inverse(take(m_flat, arrs["dense"]))), None
     if meta.kind == "assembled":
         vals = _exec_assembled(meta, arrs, m_flat)
         return Inverse("assembled", mat=arrs["op"](vals),
@@ -416,13 +453,15 @@ def _matvec_arrays(M: sp.csr_matrix, up: _Tensors,
     if transpose:
         order = np.argsort(cols, kind="stable")
         return {"perm": up(order), "x_at": up(rows[order]),
-                "out": up(cols[order]), "n": M.shape[1]}
-    return {"perm": None, "x_at": up(cols), "out": up(rows), "n": M.shape[0]}
+                "lengths": up.count(run_lengths(cols[order], M.shape[1],
+                                                up.device))}
+    return {"perm": None, "x_at": up(cols),
+            "lengths": up.count(run_lengths(rows, M.shape[0], up.device))}
 
 
 def _exec_matvec(arrs: dict, m_flat, x):
     vals = m_flat if arrs["perm"] is None else m_flat[arrs["perm"]]
-    return segment_sum(vals * x[arrs["x_at"]], arrs["out"], arrs["n"])
+    return segment_sum(vals * x[arrs["x_at"]], arrs["lengths"])
 
 
 def _exec_null_smooth(mv: dict, m_flat, dpos, v):
@@ -435,8 +474,8 @@ def _exec_null_smooth(mv: dict, m_flat, dpos, v):
         r = -_exec_matvec(mv, m_flat, x)
         z = dinv * r
         Az = _exec_matvec(mv, m_flat, z)
-        denom = torch.dot(Az, Az)
-        alpha = torch.where(denom != 0, torch.dot(Az, r)
+        denom = ordered_dot(Az, Az)
+        alpha = torch.where(denom != 0, ordered_dot(Az, r)
                             / torch.where(denom != 0, denom, 1.0), 0.0)
         x = x + alpha * z
     return x
@@ -461,19 +500,31 @@ def _constrain_tables(M_pat: sp.csr_matrix, up: _Tensors) -> list:
 def _exec_constrain(buckets, data, b_row, b_col, sigma_drop: float):
     """``data``: transfer values on the fixed pattern; ``b_row``/``b_col``
     the stacked null vectors of its row and column spaces.  The corrected
-    values, by batched SVD pseudo-inverses with the reference's absolute
-    cutoff."""
+    values, by batched pseudo-inverses with the reference's absolute
+    cutoff.  The small products sum term by term in a fixed order, and
+    with one null vector (k = 1) the pseudo-inverse of the 1 x 1 Gram
+    matrix g is 1/g, so a card computes the CPU's bits; with more, a
+    batched SVD (its rounding differs between devices)."""
     for bk in buckets:
         Bj = b_col[bk["cols"]]                          # [R, m, k]
-        G = torch.einsum("rmk,rml->rkl", Bj, Bj)
         vals = data[bk["pos"]]                          # [R, m]
-        diff = torch.einsum("rm,rmk->rk", vals, Bj) - b_row[bk["rows"]]
-        U, sv, Vh = torch.linalg.svd(G)
-        sinv = torch.where(sv.abs() > sigma_drop,
-                           1.0 / torch.where(sv != 0, sv, 1.0), 0.0)
-        piv = torch.einsum("rji,rj,rkj->rik", Vh, sinv, U)
-        corr = torch.einsum("rkl,rl->rk", piv, diff)
-        new = vals - torch.einsum("rmk,rk->rm", Bj, corr)
+        m, k = Bj.shape[1], Bj.shape[2]
+        G = ordered_sum([Bj[:, j, :, None] * Bj[:, j, None, :]
+                         for j in range(m)])            # [R, k, k]
+        diff = ordered_sum([vals[:, j, None] * Bj[:, j]
+                            for j in range(m)]) - b_row[bk["rows"]]
+        if k == 1:
+            piv = torch.where(G > sigma_drop,
+                              1.0 / torch.where(G != 0, G, 1.0), 0.0)
+        else:
+            U, sv, Vh = torch.linalg.svd(G)
+            sinv = torch.where(sv.abs() > sigma_drop,
+                               1.0 / torch.where(sv != 0, sv, 1.0), 0.0)
+            piv = torch.einsum("rji,rj,rkj->rik", Vh, sinv, U)
+        corr = ordered_sum([piv[:, :, l] * diff[:, l, None]
+                            for l in range(k)])         # [R, k]
+        new = vals - ordered_sum([Bj[:, :, l] * corr[:, l, None]
+                                  for l in range(k)])
         data = data.index_put((bk["pos"].reshape(-1),), new.reshape(-1))
     return data
 
@@ -484,10 +535,6 @@ def _exec_constrain(buckets, data, b_row, b_col, sigma_drop: float):
 @dataclass
 class _LevelMeta:
     n: int
-    nnz_z: int
-    nnz_ap: int
-    nnz_rap: int
-    nnz_coarse: int
     inv: _InvMeta
     z_src: str                     # diag-same|diag-own|diag-drop|same|sep|lair
     invh: _InvMeta = None          # the separately assembled dropped inverse
@@ -501,7 +548,6 @@ class _LevelMeta:
     constrain_z: bool = False
     sigma_drop: float = 1e-13
     full_smooth: bool = False
-    nnz_w: int = 0
     static: dict = field(default_factory=dict)   # device leaves kept as is
 
 
@@ -636,13 +682,11 @@ def _build_level_plan(lvl, opts: AIROptions, up: _Tensors):
 
     if z_is_lair:
         z_pat = lair_pat
-        nnz_z = lair_pat.nnz
     else:
         arrs["z"] = zplan.device_tables(up.device)
         up.count(arrs["z"])
         arrs["z_inv_at"] = invh_at(zplan.pat_B)
         z_pat = _pattern_csr(zplan.pat_C)
-        nnz_z = zplan.pat_C.nnz
     arrs["zdrop"] = _match_arrays(z_pat, pats["Z_drop"], False, up)
 
     # R = [Z_drop I]: Z_drop entries and the identity's ones
@@ -671,7 +715,6 @@ def _build_level_plan(lvl, opts: AIROptions, up: _Tensors):
     P_pos = _positions(Pm) if full_smooth else _map_cols(_positions(Pm),
                                                          coarse, n)
     static = {}
-    nnz_w = 0
     if opts.symmetric:
         # P = R^T exactly: P's values a static permutation of R's
         # (reference: src/AIR_Operators_Setup.F90:919-922)
@@ -694,7 +737,6 @@ def _build_level_plan(lvl, opts: AIROptions, up: _Tensors):
                              "numeric plan (reuse_amount>=2 setup)")
         arrs["w"] = up.count(wplan.device_tables(up.device))
         arrs["w_inv_at"] = invh_at(wplan.pat_A)
-        nnz_w = wplan.pat_C.nnz
         arrs["wdrop"] = _match_arrays(_pattern_csr(wplan.pat_C),
                                       pats["W_drop"], False, up)
         # P = [W_drop; I]: W_drop entries on fine rows, ones on coarse rows
@@ -807,16 +849,14 @@ def _build_level_plan(lvl, opts: AIROptions, up: _Tensors):
         static["mask_c"] = up.values(mask_c)
 
     meta = _LevelMeta(
-        n=n, nnz_z=nnz_z, nnz_ap=ap_plan.pat_C.nnz,
-        nnz_rap=rap_plan.pat_C.nnz, nnz_coarse=pats["RAP_drop"].nnz,
-        inv=inv_meta, z_src=z_src, invh=invh_meta, invc=invc_meta,
+        n=n, inv=inv_meta, z_src=z_src, invh=invh_meta, invc=invc_meta,
         transfer=transfer, strong_r=strong_r,
         improve_w=opts.improve_w_its, improve_z=opts.improve_z_its,
         improve_diag=improve_diag, constrain_w=opts.constrain_w,
         constrain_z=opts.constrain_z,
         sigma_drop=float(tolerances(numpy_dtype(up.dtype, np.float64))
                          .sigma_drop),
-        full_smooth=full_smooth, nnz_w=nnz_w, static=static)
+        full_smooth=full_smooth, static=static)
     return meta, arrs
 
 
@@ -871,8 +911,7 @@ def _exec_level(meta: _LevelMeta, arrs: dict, a_flat, nulls):
         # against the undropped blocks, as the host solves them
         z = sai_execute(arrs["z_sai"], aff, acf)
     else:
-        z = -plan_execute(arrs["z"], acf_z, invh[arrs["z_inv_at"]],
-                          meta.nnz_z)
+        z = -plan_execute(arrs["z"], acf_z, invh[arrs["z_inv_at"]])
     dinv = None
     if meta.improve_diag == "direct":
         dinv = invh
@@ -886,7 +925,7 @@ def _exec_level(meta: _LevelMeta, arrs: dict, a_flat, nulls):
     elif meta.improve_diag == "aff-recip":
         dinv = _recip(take(aff, arrs["imp_dpos"]))
     for _ in range(meta.improve_z):
-        za = plan_execute(arrs["zimp"], z, aff, meta.nnz_z)
+        za = plan_execute(arrs["zimp"], z, aff)
         z = z - (take(acf, arrs["zimp_acf"]) + za) * dinv[arrs["zimp_cols"]]
     zdrop = take(z, arrs["zdrop"]["src"])
     if meta.constrain_z:
@@ -898,10 +937,9 @@ def _exec_level(meta: _LevelMeta, arrs: dict, a_flat, nulls):
     lv["R"] = arrs["op_R"](r_flat)
 
     if meta.transfer == "ideal":
-        w = -plan_execute(arrs["w"], invh[arrs["w_inv_at"]], afc_w,
-                          meta.nnz_w)
+        w = -plan_execute(arrs["w"], invh[arrs["w_inv_at"]], afc_w)
         for _ in range(meta.improve_w):
-            aw = plan_execute(arrs["wimp"], aff, w, meta.nnz_w)
+            aw = plan_execute(arrs["wimp"], aff, w)
             w = w - dinv[arrs["wimp_rows"]] * (take(afc, arrs["wimp_afc"])
                                                + aw)
         wdrop = take(w, arrs["wdrop"]["src"])
@@ -918,9 +956,9 @@ def _exec_level(meta: _LevelMeta, arrs: dict, a_flat, nulls):
         lv["P"] = arrs["op_P"](p_flat)
     else:
         p_flat = arrs["p_vals"]
-    ap = plan_execute(arrs["ap"], a_flat, p_flat, meta.nnz_ap)
-    rap = plan_execute(arrs["rap"], r_flat, ap, meta.nnz_rap)
-    coarse_vals = _exec_match(arrs["coarse"], rap, meta.nnz_coarse)
+    ap = plan_execute(arrs["ap"], a_flat, p_flat)
+    rap = plan_execute(arrs["rap"], r_flat, ap)
+    coarse_vals = _exec_match(arrs["coarse"], rap)
 
     if "cc" in arrs:
         acc = a_flat[arrs["cc"]]

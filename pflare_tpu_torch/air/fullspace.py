@@ -28,16 +28,24 @@ from ..sparse.dia import DIA
 from ..sparse.dtypes import numpy_dtype
 
 
-def make_op(M_host: sp.csr_matrix, dtype=None):
+def op_kind(M_host: sp.csr_matrix) -> str:
     """The solve-phase container of a host matrix, chosen by structure
-    alone: DIA when its offsets pay, else the banded windowed SpMV when the
-    bandwidth allows, else the [K, n] gather ELL.  The choice does not
-    depend on the device, so a CPU run builds the containers a card runs."""
+    alone: "dia" when its offsets pay, else "banded" (the windowed SpMV)
+    when the bandwidth allows, else "tell" (the [K, n] gather ELL).  The
+    choice does not depend on the device, so a CPU run builds the
+    containers a card runs, and a row-sharded operator gives each shard
+    the kind of the whole (parallel/halo.py)."""
     if DIA.viable(M_host):
-        return DIA.from_scipy(M_host, dtype=dtype)
+        return "dia"
     if BandedSpMV.viable(M_host):
-        return BandedSpMV.from_scipy(M_host, dtype=dtype)
-    return TELL.from_scipy(M_host, dtype=dtype)
+        return "banded"
+    return "tell"
+
+
+def make_op(M_host: sp.csr_matrix, dtype=None):
+    """The container ``op_kind`` chooses, built from the host matrix."""
+    cls = {"dia": DIA, "banded": BandedSpMV, "tell": TELL}[op_kind(M_host)]
+    return cls.from_scipy(M_host, dtype=dtype)
 
 
 def _map_rows(M: sp.csr_matrix, row_map: np.ndarray, n_new: int):

@@ -32,6 +32,7 @@ from ..utils.timers import timer
 from .constrain import constrain_grid_transfer, smooth_near_nullspace
 from .fullspace import build_fullspace_level, build_full_smoothing_level, make_op
 from .operators import (
+    _matmat,
     ap_product,
     assemble_p,
     assemble_r,
@@ -41,6 +42,7 @@ from .operators import (
     compute_z_lair,
     extract_submatrices,
     improve_transfer,
+    mesh_matmat_drop,
     strong_r_drop,
 )
 
@@ -237,18 +239,20 @@ def _diag_inverse(A: sp.csr_matrix) -> Inverse:
 
 def _build_smoother_inverse(M, opts: AIROptions, inverse_type, poly_order,
                             sparsity_order, matrix_free, coefficients=None,
-                            patterns=None, plan_key=None):
+                            patterns=None, plan_key=None, qr_reduce=None):
     """A level's approximate inverse of ``M``.  With ``patterns`` a stored
     polynomial plan ``patterns[plan_key]`` evaluates an assembled
     polynomial, and a first setup with ``reuse_amount`` >= 3 stores one
-    (the numeric plan of the device re-setup)."""
+    (the numeric plan of the device re-setup).  ``qr_reduce``: the
+    power basis's QR (the mesh's TSQR)."""
     if _is_diagonal_only(M):
         return _diag_inverse(M)
     poly_plan = None if patterns is None else patterns.get(plan_key)
     inv = build_inverse(
         M, inverse_type, poly_order=poly_order, sparsity_order=sparsity_order,
         matrix_free=matrix_free, diag_scale=opts.diag_scale_polys,
-        coefficients=coefficients, seed=opts.seed, poly_plan=poly_plan)
+        coefficients=coefficients, seed=opts.seed, poly_plan=poly_plan,
+        qr_reduce=qr_reduce)
     if (patterns is not None and poly_plan is None and opts.reuse_sparsity
             and opts.reuse_amount >= 3 and inv.kind == "assembled"
             and inverse_type in (InverseType.POWER, InverseType.ARNOLDI,
@@ -263,13 +267,14 @@ def _build_smoother_inverse(M, opts: AIROptions, inverse_type, poly_order,
     return inv
 
 
-def _build_coarse_inverse(A, opts: AIROptions, coefficients=None) -> Inverse:
+def _build_coarse_inverse(A, opts: AIROptions, coefficients=None,
+                          qr_reduce=None) -> Inverse:
     return build_inverse(
         A, opts.coarsest_inverse_type, poly_order=opts.coarsest_poly_order,
         sparsity_order=opts.coarsest_inverse_sparsity_order,
         matrix_free=opts.coarsest_matrix_free_polys,
         diag_scale=opts.coarsest_diag_scale_polys,
-        coefficients=coefficients, seed=opts.seed)
+        coefficients=coefficients, seed=opts.seed, qr_reduce=qr_reduce)
 
 
 def _assembled_host(inv: Inverse) -> sp.csr_matrix:
@@ -290,13 +295,20 @@ def _coarse_solver_quality(A: sp.csr_matrix, inv: Inverse, seed: int) -> float:
 
 def setup_hierarchy(A: sp.csr_matrix, opts: AIROptions,
                     previous: Hierarchy | None = None, near_nullspace=None,
-                    injected_coeffs: dict | None = None) -> Hierarchy:
+                    injected_coeffs: dict | None = None,
+                    mesh=None) -> Hierarchy:
     """Build the full AIR hierarchy of ``A`` on the host, or rebuild it
     numerically when ``previous`` (a setup of a matrix with the same
     pattern) is given.  ``near_nullspace``: the candidate vectors of the
     constraints (default the constant vector).  ``injected_coeffs``:
     polynomial coefficients by level (-1 the coarse solver) that replace
-    the coefficient iterations (PCAIRSetPolyCoeffs)."""
+    the coefficient iterations (PCAIRSetPolyCoeffs).  ``mesh``: the
+    distributed setup over a row mesh (parallel/mesh.py): the PMISR Luby
+    rounds run sharded on its device (reference: the PetscSF halo
+    exchange inside PMISR, src/PMISR_Module.F90:476-643), the W/Z/AP/RAP
+    products are row-sharded device products and power-basis
+    coefficients reduce through the TSQR (src/TSQR.F90:65); the hierarchy
+    equals the serial one but for the rounding of those reductions."""
     A = sp.csr_matrix(A)
     A.sort_indices()
     levels: list[LevelData] = []
@@ -321,6 +333,12 @@ def setup_hierarchy(A: sp.csr_matrix, opts: AIROptions,
     repartition = opts.coarse_repartition
     if repartition is None:
         repartition = opts.reorder in ("auto", "rcm")
+    qr_reduce = None
+    if mesh is not None and InverseType.POWER in (
+            opts.inverse_type, opts.coarsest_inverse_type):
+        from ..parallel.tsqr import make_qr_reduce
+
+        qr_reduce = make_qr_reduce(mesh)
 
     while len(levels) < opts.max_levels - 1:
         level_idx = len(levels)
@@ -350,7 +368,7 @@ def setup_hierarchy(A: sp.csr_matrix, opts: AIROptions,
                     cr_inverse_type=opts.inverse_type,
                     cr_poly_order=opts.poly_order,
                     cr_sparsity_order=opts.inverse_sparsity_order,
-                    cr_diag_scale=opts.diag_scale_polys)
+                    cr_diag_scale=opts.diag_scale_polys, mesh=mesh)
         # coarsen-or-stop (reference: src/AIR_MG_Setup.F90:316-363)
         if len(coarse) <= opts.coarse_eq_limit or len(fine) == 0:
             break
@@ -360,7 +378,7 @@ def setup_hierarchy(A: sp.csr_matrix, opts: AIROptions,
         if prev_lvl is not None and opts.reuse_amount < 2:
             prev_lvl = None
         injected = injected_coeffs.get(level_idx)
-        if (prev_lvl is not None and injected is None
+        if (prev_lvl is not None and injected is None and mesh is None
                 and "host_fast" in prev_lvl.patterns):
             # numeric-only rebuild from the stored index plans
             from .host_resetup import rebuild_level
@@ -368,7 +386,7 @@ def setup_hierarchy(A: sp.csr_matrix, opts: AIROptions,
             lvl = rebuild_level(A, prev_lvl, opts)
         else:
             lvl = _build_level(A, fine, coarse, opts, prev_lvl, left_nulls,
-                               right_nulls, injected)
+                               right_nulls, injected, mesh, qr_reduce)
         levels.append(lvl)
 
         # RCM coarse repartition (the ParMETIS stand-in, reference:
@@ -380,7 +398,8 @@ def setup_hierarchy(A: sp.csr_matrix, opts: AIROptions,
         perm = None
         if prev_lvl is not None and "coarse_perm" in prev_lvl.patterns:
             perm = prev_lvl.patterns["coarse_perm"]
-        elif repartition and not opts.full_smoothing_up_and_down:
+        elif (repartition and mesh is None
+              and not opts.full_smoothing_up_and_down):
             from ..parallel.repartition import coarse_repartition_perm
 
             with timer("air_repartition"):
@@ -408,18 +427,23 @@ def setup_hierarchy(A: sp.csr_matrix, opts: AIROptions,
                 if (coeffs is None and reuse and opts.reuse_poly_coeffs
                         and previous.coarse_inv.coefficients is not None):
                     coeffs = np.asarray(previous.coarse_inv.coefficients)
-                coarse_inv = _build_coarse_inverse(A, opts, coeffs)
+                coarse_inv = _build_coarse_inverse(A, opts, coeffs,
+                                                   qr_reduce)
     return Hierarchy(levels, A, coarse_inv, opts,
                      auto_truncated=auto_truncated,
                      near_nullspace=near_nullspace)
 
 
 def _build_level(A, fine, coarse, opts: AIROptions, prev: LevelData | None,
-                 left_nulls=None, right_nulls=None, injected=None):
+                 left_nulls=None, right_nulls=None, injected=None,
+                 mesh=None, qr_reduce=None):
     """One level's operators (reference: src/AIR_Operators_Setup.F90:
     36-1082).  ``prev``: the level of a same-pattern setup, whose stored
     patterns take the values (their dict is shared and updated);
-    ``injected``: coefficients for the level's inverse."""
+    ``injected``: coefficients for the level's inverse; ``mesh``: the
+    W/Z/AP/RAP products run row-sharded over it (``mesh_matmat_drop``,
+    the distributed MatMatMult of src/AIR_Operators_Setup.F90:993-1033);
+    ``qr_reduce``: the smoother's power-basis QR."""
     n = A.shape[0]
     patterns = prev.patterns if prev is not None else {}
     keep_patterns = opts.reuse_sparsity and opts.reuse_amount >= 2
@@ -468,7 +492,7 @@ def _build_level(A, fine, coarse, opts: AIROptions, prev: LevelData | None,
             smooth_mat, opts, opts.inverse_type, opts.poly_order,
             opts.inverse_sparsity_order, opts.matrix_free_polys,
             coefficients=coeffs, patterns=patterns,
-            plan_key="inv_aff_poly_plan")
+            plan_key="inv_aff_poly_plan", qr_reduce=qr_reduce)
         # AIRG's Z and the ideal W need an ASSEMBLED inverse of the dropped
         # A_ff (reference: src/AIR_Operators_Setup.F90:406-475).  The
         # smoother's own inverse serves only when it is one: not when it
@@ -530,7 +554,12 @@ def _build_level(A, fine, coarse, opts: AIROptions, prev: LevelData | None,
                 else:
                     W_drop = one_point_strongest(A_fc)
             else:
-                W = compute_w_ideal(inv_Aff_host, A_fc_drop)
+                if mesh is not None:
+                    W = mesh_matmat_drop(inv_Aff_host, A_fc_drop, 0.0, False,
+                                         mesh, name="W")
+                    W.data *= -1.0
+                else:
+                    W = compute_w_ideal(inv_Aff_host, A_fc_drop)
                 if opts.improve_w_its > 0:
                     W = improve_transfer(W, A_ff, A_fc, inv_diag_Aff,
                                          opts.improve_w_its, is_z=False)
@@ -557,9 +586,15 @@ def _build_level(A, fine, coarse, opts: AIROptions, prev: LevelData | None,
             if (prev is None and opts.improve_z_its == 0
                     and not want_plans):
                 # nothing needs the undropped Z: the product and the r_drop
-                # fuse in one native sweep when it can
-                Z_drop = compute_z_airg(A_cf_drop, inv_Aff_host,
-                                        opts.r_drop)
+                # fuse in one sweep (native, or row-sharded over the mesh)
+                if mesh is not None:
+                    Z_drop = mesh_matmat_drop(A_cf_drop, inv_Aff_host,
+                                              opts.r_drop, False, mesh,
+                                              name="Z")
+                    Z_drop.data *= -1.0
+                else:
+                    Z_drop = compute_z_airg(A_cf_drop, inv_Aff_host,
+                                            opts.r_drop)
             elif (prev is not None and zplan is None
                     and opts.improve_z_its == 0
                     and not (opts.constrain_z and left_nulls is not None)
@@ -584,7 +619,12 @@ def _build_level(A, fine, coarse, opts: AIROptions, prev: LevelData | None,
                 # the inputs' patterns are unchanged on a re-setup, so the
                 # product pattern is too; the stored Z_drop match below
                 # gives the reference's MAT_REUSE_MATRIX result
-                Z = compute_z_airg(A_cf_drop, inv_Aff_host)
+                if mesh is not None:
+                    Z = mesh_matmat_drop(A_cf_drop, inv_Aff_host, 0.0,
+                                         False, mesh, name="Z")
+                    Z.data *= -1.0
+                else:
+                    Z = compute_z_airg(A_cf_drop, inv_Aff_host)
                 if want_plans and "Z_numeric_plan" not in patterns:
                     patterns["Z_numeric_plan"] = _make_product_plan(
                         A_cf_drop, inv_Aff_host, Z)
@@ -646,6 +686,11 @@ def _build_level(A, fine, coarse, opts: AIROptions, prev: LevelData | None,
                 coarse_A = remove_from_sparse_match(
                     sp.csr_matrix(Rm @ AP), patterns["RAP_drop"],
                     lump=opts.a_lump)
+        elif mesh is not None and not opts.symmetric:
+            AP = mesh_matmat_drop(A, P, 0.0, False, mesh, name="AP")
+            coarse_A = mesh_matmat_drop(R, AP, opts.a_drop, opts.a_lump,
+                                        mesh, name="RAP")
+            RAP = _matmat(R, AP) if want_plans else None
         else:
             coarse_A, RAP, AP = compute_coarse_matrix(
                 A, R, P, opts.a_drop, opts.a_lump, opts.symmetric,
@@ -660,7 +705,7 @@ def _build_level(A, fine, coarse, opts: AIROptions, prev: LevelData | None,
                     A_cf=A_cf if need_acc else None, A_cc=A_cc, R=R, P=P,
                     inv_Aff=inv_Aff, inv_Acc=inv_Acc,
                     inv_Aff_host=inv_Aff_host, patterns=patterns)
-    if prev is None and injected is None and keep_patterns:
+    if prev is None and injected is None and mesh is None and keep_patterns:
         from .host_resetup import build_plan, eligible
 
         if eligible(opts):

@@ -2,9 +2,9 @@
 
 Host setup phase (reference: src/AIR_Operators_Setup.F90,
 src/Grid_Transfer.F90, src/Grid_Transfer_Improve.F90), ported from
-``pflare_tpu.air.operators`` without the mesh-sharded products: scipy
-products and the port's native host kernels, in the precision of the input
-matrix.
+``pflare_tpu.air.operators``: scipy products and the port's native host
+kernels, in the precision of the input matrix, and with a row mesh the
+products as row-sharded device products (``mesh_matmat_drop``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,50 @@ def ap_product(A: sp.csr_matrix, P: sp.csr_matrix) -> sp.csr_matrix:
         if AP is not None:
             return AP
     return _matmat(A, P)
+
+
+# when set to a list, mesh_matmat_drop appends (name, both operands
+# row-sharded) per product, so a caller can see that a distributed setup
+# multiplies only sharded operators
+MESH_PRODUCT_LOG: list | None = None
+
+
+def mesh_matmat_drop(Amat, Bmat, tol: float, lump: bool, mesh,
+                     name: str = "") -> sp.csr_matrix:
+    """C = drop(A @ B) as a row-sharded device product over the mesh, the
+    analogue of the reference's MPI MatMatMult/MatPtAP with communicated
+    halo rows (src/AIR_Operators_Setup.F90:993-1033): both operands upload
+    to the mesh's device in their precision, rows padded to equal blocks,
+    the neighbour-only halo product runs shard by shard
+    (parallel/halo_spgemm.py) and the compacted result comes back.  Equal
+    to the host product + relative drop, except that tol 0 drops the exact
+    zeros scipy's product keeps in its pattern.  ``name`` labels the
+    product in the mesh's log."""
+    import torch.nn.functional as F
+
+    from ..parallel.mesh import padded_rows
+    from ..sparse.dell import DELL, PADCOL, ShardedDELL, spgemm_drop_dell
+    from ..sparse.dtypes import torch_dtype
+
+    np_dtype = np.result_type(Amat.dtype, Bmat.dtype)
+    dtype = torch_dtype(np_dtype)
+
+    def _up(M):
+        d = DELL.from_scipy(M, dtype=dtype, device=mesh.device)
+        p = padded_rows(d.data.shape[0], mesh) - d.data.shape[0]
+        data = F.pad(d.data, (0, 0, 0, p))
+        cols = F.pad(d.cols, (0, 0, 0, p), value=PADCOL)
+        return ShardedDELL(data, cols, d.n_cols, mesh, name)
+
+    Ad, Bd = _up(Amat), _up(Bmat)
+    if MESH_PRODUCT_LOG is not None:
+        MESH_PRODUCT_LOG.append(
+            (name, isinstance(Ad, ShardedDELL) and isinstance(Bd,
+                                                              ShardedDELL)))
+    C = spgemm_drop_dell(Ad, Bd, float(tol), relative=True, lump=lump)
+    out = sp.csr_matrix(C.to_scipy()[: Amat.shape[0]])
+    out.sort_indices()
+    return out.astype(np_dtype, copy=False)
 
 
 def extract_submatrices(A: sp.csr_matrix, fine, coarse, need_acc=False):

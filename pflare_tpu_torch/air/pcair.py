@@ -11,12 +11,15 @@ iterations with no host round trip.  Changing options resets the
 preconditioner (reference: src/PCAIR_Interfaces.F90:1821-1882).  Under
 ``reorder="rcm"``/``"auto"`` the setup and solve run in the
 bandwidth-reducing order and every vector comes back in the caller's.
+With a row mesh (parallel/mesh.py) ``setup(A, mesh=)`` runs the
+distributed setup and ``solve_device(b, mesh=)`` the sharded solve.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
@@ -28,7 +31,7 @@ from ..solvers.jitted import (gmres_right_fixed, gmres_stationary,
 from ..solvers.krylov import SolveResult, fgmres, gmres, richardson
 from ..utils.timers import print_timers, timer
 from .hierarchy import DeviceHierarchy, Hierarchy, setup_hierarchy
-from .smooth import vcycle_full, vcycle_kaskade
+from .smooth import _pad_to, vcycle_full, vcycle_kaskade
 from .stats import compute_stats, print_stats
 
 
@@ -59,6 +62,7 @@ class PCAIR:
         self._perm = None       # device index tensors of the reordering
         self._iperm = None
         self._frozen = False    # KSPSetReusePreconditioner analogue
+        self._dist = None       # (mesh, DistributedState) of the last mesh
         self._injected_coeffs = None  # set_poly_coefficients payloads
         # whether this PCAIR's upload of its host hierarchy is still
         # registered there as pending (see Hierarchy.upload_done)
@@ -76,6 +80,7 @@ class PCAIR:
         """Drop the hierarchy, its device form and injected coefficients."""
         self.hierarchy = None
         self._device_hierarchy = None
+        self._dist = None
         self._injected_coeffs = None
         self._upload_owed = False
 
@@ -104,7 +109,8 @@ class PCAIR:
             self.hierarchy, dtype=self.dtype, device=self.device,
             perm=None if self._perm is None else self._perm.cpu().numpy())
 
-    def setup(self, A, structure: str = "different", near_nullspace=None):
+    def setup(self, A, structure: str = "different", near_nullspace=None,
+              mesh=None):
         """Build the hierarchy of the scipy matrix ``A`` on the host.
         ``structure="same"`` declares A's nonzero pattern that of the last
         setup: with ``reuse_sparsity`` the stored CF splitting and (from
@@ -114,7 +120,10 @@ class PCAIR:
         vectors for the constraints, in the caller's order.  A re-setup
         drops the uploaded device form: the next ``upload`` copies the new
         values, and a twin made by ``on`` before it keeps the old
-        hierarchy."""
+        hierarchy.  ``mesh``: the distributed setup over a row mesh
+        (``setup_hierarchy``): the Luby rounds sharded on its device, the
+        W/Z/AP/RAP products row-sharded there and the power-basis QR by
+        TSQR."""
         if structure not in ("same", "different"):
             raise ValueError("structure must be 'same' or 'different', not "
                              f"{structure!r}")
@@ -137,8 +146,9 @@ class PCAIR:
             self.hierarchy = setup_hierarchy(
                 A, self.options, previous=previous,
                 near_nullspace=near_nullspace,
-                injected_coeffs=self._injected_coeffs)
+                injected_coeffs=self._injected_coeffs, mesh=mesh)
         self._device_hierarchy = None
+        self._dist = None
         self.hierarchy.expect_upload()
         self._upload_owed = True
         if self.options.print_stats_timings:
@@ -191,6 +201,7 @@ class PCAIR:
             self.hierarchy = setup_hierarchy_device(
                 A, self.options, dtype=self.dtype, device=self.device)
         self._device_hierarchy = self.hierarchy.solve_form
+        self._dist = None
         self._upload_owed = False
         return self
 
@@ -331,7 +342,7 @@ class PCAIR:
         return res
 
     def solve_device(self, b, max_it: int = 10, ksp: str = "richardson",
-                     x0=None):
+                     x0=None, mesh=None):
         """``max_it`` preconditioned iterations with no host round trip:
         Richardson (``ksp="richardson"``) or right-preconditioned GMRES
         without restart (``"gmres"``/``"fgmres"``).  Returns (x, residual
@@ -339,18 +350,66 @@ class PCAIR:
         the caller judges convergence from the norms.  Under
         full_smoothing_up_and_down the cycle is ``vcycle_full``, as in
         ``solve`` (the reference's solve_device runs the Kaskade cycle
-        there, pflare_tpu/air/pcair.py:452-458)."""
+        there, pflare_tpu/air/pcair.py:452-458).  ``mesh``: a row mesh on
+        this PCAIR's device; the hierarchy is sharded over it
+        (``_distributed_state``), b and x0 are permuted, padded and
+        sharded, and x comes back cut to n in the caller's order."""
         if ksp == "richardson":
             solver = richardson_fixed
         elif ksp in ("gmres", "fgmres"):
             solver = gmres_right_fixed
         else:
             raise ValueError(f"unknown ksp {ksp!r}")
-        dh = self.upload()
+        b = self._to_internal(self._vector(b))
         x0 = None if x0 is None else self._to_internal(self._vector(x0))
-        x, norms = solver(dh.top.matvec, self._precond(dh),
-                          self._to_internal(self._vector(b)), max_it, x0=x0)
-        return self._from_internal(x), norms
+        if mesh is None:
+            dh = self.upload()
+            x, norms = solver(dh.top.matvec, self._precond(dh), b, max_it,
+                              x0=x0)
+            return self._from_internal(x), norms
+        from ..parallel.mesh import shard_vec
+
+        st = self._distributed_state(mesh)
+        x, norms = solver(st.top.matvec, st.precond, shard_vec(b, mesh),
+                          max_it,
+                          x0=None if x0 is None else shard_vec(x0, mesh))
+        return self._from_internal(x[: b.shape[0]]), norms
+
+    def _distributed_state(self, mesh) -> "DistributedState":
+        """The solve form sharded over ``mesh``, built once per mesh and
+        set-up (reference: pflare_tpu/air/pcair.py:469-510): the top
+        operator row-sharded on the padded row space (``HaloELL`` on the
+        top's own container where the partition is banded, else against
+        the all-gathered vector), the levels by ``shard_hierarchy`` and
+        the V-cycle over them.  The full-smoothing form and a one-level
+        hierarchy stay whole, their vectors cut to n and padded back."""
+        from ..parallel.mesh import _shard_op, padded_rows, shard_hierarchy
+
+        if self._dist is not None and self._dist[0] is mesh:
+            return self._dist[1]
+        if torch.empty(0, device=self.device).device != mesh.device:
+            raise ValueError(f"the mesh's shards lie on {mesh.device}, this "
+                             f"PCAIR solves on {self.device}")
+        dh = self.upload()
+        n = dh.top.shape[0]
+        top = _shard_op(dh.top, mesh, padded_rows(n, mesh), "top")
+        if dh.full_smoothing or not dh.levels:
+            whole = self._precond(dh)
+            levels, coarse_inv = dh.levels, dh.coarse_inv
+            schedule = [1] * len(levels)
+
+            def precond(r):
+                return _pad_to(whole(r[:n]), r.shape[0])
+        else:
+            levels, coarse_inv, schedule = shard_hierarchy(
+                self.hierarchy, mesh, self.options, device_form=dh)
+            order = self.options.smooth_arg
+
+            def precond(r):
+                return vcycle_kaskade(levels, coarse_inv, r, order)
+        state = DistributedState(top, levels, coarse_inv, schedule, precond)
+        self._dist = (mesh, state)
+        return state
 
     # ~~~~~~~~~~ introspection ~~~~~~~~~~
     def stats(self):
@@ -428,6 +487,18 @@ class PCAIR:
             self._injected_coeffs = {}
         self._injected_coeffs[level] = np.asarray(coeffs)
         return self
+
+
+@dataclass
+class DistributedState:
+    """A solve form sharded over a row mesh: the top operator, the level
+    dicts, the coarse inverse, the active shards of each level and the
+    preconditioner application on padded vectors."""
+    top: object
+    levels: list
+    coarse_inv: object
+    schedule: list
+    precond: object
 
 
 def _checked(opts: AIROptions) -> AIROptions:

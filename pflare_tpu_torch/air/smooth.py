@@ -60,25 +60,37 @@ def fc_point_richardson(level, b, x, smooth_order):
     return x
 
 
+def _pad_to(v, n: int):
+    """v zero-padded, or cut, to length n.  Levels sharded over a row mesh
+    (parallel/mesh.py) carry padded row spaces whose pads hold zeros, so
+    the vectors between levels are padded or cut to the next level's
+    (pflare_tpu/air/smooth.py:105-145)."""
+    if v.shape[0] < n:
+        return torch.cat([v, v.new_zeros(n - v.shape[0])])
+    return v[:n]
+
+
 def vcycle_kaskade(levels, coarse_inv, r, smooth_order):
     """AIR preconditioner application M^-1 r (PETSc PC_MG_KASKADE
     semantics: no down smooths; RHS restricted down; smoothing only on the
-    way up with a nonzero initial guess)."""
+    way up with a nonzero initial guess).  Each level's row space, padded
+    or not, is the length of its ``mask_f``; the result has r's length."""
     bs = [r]
     for lev in levels:
+        b = _pad_to(bs[-1], lev["mask_f"].shape[0])
+        bs[-1] = b
         # R_ext writes the restricted values at the coarse positions
-        t = lev["R"].matvec(bs[-1])
-        bs.append(t.index_select(0, lev["coarse"]))
+        bs.append(lev["R"].matvec(b).index_select(0, lev["coarse"]))
     x = coarse_inv.apply(bs[-1])
     for i in range(len(levels) - 1, -1, -1):
         lev = levels[i]
         x_full = torch.zeros(lev["mask_f"].shape[0], dtype=x.dtype,
                              device=x.device)
-        x_full.index_copy_(0, lev["coarse"], x)
+        x_full.index_copy_(0, lev["coarse"], x[:lev["coarse"].shape[0]])
         x = lev["P"].matvec(x_full)
         x = fc_point_richardson(lev, bs[i], x,
                                 _order_for_level(smooth_order, i))
-    return x
+    return _pad_to(x, r.shape[0])
 
 
 def full_smooth(level, b, x, its: int = 1):

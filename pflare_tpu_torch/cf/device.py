@@ -36,15 +36,31 @@ def graph_to_device(S_sym: sp.csr_matrix, device="cuda"):
 
 
 def luby_rounds(gcols, measure, cf0, n_rounds: int, pmis: bool = False,
-                zero_measure_c_point: bool = False):
+                zero_measure_c_point: bool = False, mesh=None):
     """PMISR/PMIS Luby rounds over a padded symmetric graph (dead slots
     ``PADCOL``), a fixed number of them with no host read: a round that
     adds no node changes nothing, so the reference's early stop gives the
     same markers.  PMIS passes a negated measure and the caller flips the
     markers; the zero-measure value follows the host's pre-flip
     convention (reference: src/PMISR_Module.F90:398-437).  Nodes left
-    undecided become C."""
+    undecided become C.  With a row ``mesh`` each shard decides its own
+    rows (``ceil(n / S)`` of them) from the gathered state of the whole
+    graph, one all-gather of the new set and one of the decided nodes a
+    round, as the reference compiles the rounds SPMD over its mesh
+    (pflare_tpu/cf/splitting.py:114-152); every decision reads only its
+    row, so the markers are the same."""
     n = measure.shape[0]
+    if mesh is None:
+        spans = [slice(0, n)]
+    else:
+        w = -(-n // mesh.size)
+        spans = [slice(s * w, min((s + 1) * w, n))
+                 for s in range(mesh.size) if s * w < n]
+
+    def gathered(parts):
+        whole = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return whole if mesh is None else mesh.all_gather(whole, "luby")
+
     gidx = torch.arange(n, dtype=torch.int64, device=measure.device)
     mask = gcols < PADCOL
     safe = torch.clamp(gcols, max=n - 1).long()
@@ -57,16 +73,19 @@ def luby_rounds(gcols, measure, cf0, n_rounds: int, pmis: bool = False,
         zero_val = C_POINT if pmis else F_POINT
     cf = torch.where(zero_nodes, zero_val, cf)
     assigned = assigned | zero_nodes
-    nb_meas = measure[safe]
-    beats = ((measure[:, None] > nb_meas)
-             | ((measure[:, None] == nb_meas) & (gidx[:, None] > safe)))
+    beats = [(measure[r, None] > measure[safe[r]])
+             | ((measure[r, None] == measure[safe[r]])
+                & (gidx[r, None] > safe[r])) for r in spans]
     for _ in range(n_rounds):
-        lose = mask & ~assigned[safe] & beats
-        in_set = ~assigned & ~lose.any(dim=1)
+        in_set = gathered([
+            ~assigned[r] & ~(mask[r] & ~assigned[safe[r]] & b).any(dim=1)
+            for r, b in zip(spans, beats)])
         cf = torch.where(in_set, F_POINT, cf)
         # neighbours of the new set are decided (C at the end); the
         # graph is symmetric, so a gather doubles as the scatter
-        assigned = assigned | in_set | (mask & in_set[safe]).any(dim=1)
+        assigned = gathered([
+            assigned[r] | in_set[r] | (mask[r] & in_set[safe[r]]).any(dim=1)
+            for r in spans])
     return torch.where(cf == 0, C_POINT, cf)
 
 

@@ -6,9 +6,13 @@
 // its tile's window, so that
 //
 //   y[i] = sum_k data[k, i] * x[c_k(i)],
-//   c_k(i) = (row0 / W) * W - w + lcols[k, i],  row0 = i - i % 128,
+//   c_k(i) = col_base + (row0 / W) * W - w + lcols[k, i],
+//   row0 = i - i % 128,
 //
-// with x read as 0 outside [0, n_cols).  The TPU has no gather, so there
+// with x read as 0 outside [0, n_cols).  col_base is 0 for a matrix over
+// its own columns; a shard of a row-sharded operator passes its extended
+// window of x (neighbour slabs and its own block) and the index of its
+// own block's start in it.  The TPU has no gather, so there
 // each slot became a one-hot [W, 128] matrix product on the MXU, with x
 // split into bf16 hi/lo parts.  A GPU gathers, so none of that carries
 // over.  Nor does a window of x staged in shared memory: a tile's rows
@@ -80,12 +84,12 @@ __global__ void __launch_bounds__(kThreads)
 banded_spmv_kernel(const T* __restrict__ data, const int* __restrict__ lcols,
                    const T* __restrict__ x, T* __restrict__ y, long long n,
                    long long n_pad, long long n_cols, int k_slots,
-                   long long w, long long W) {
+                   long long w, long long W, long long col_base) {
   const long long r0 =
       ((long long)blockIdx.x * kThreads + threadIdx.x) * kRowsPerThread;
   if (r0 >= n) return;
   // x index of window slot 0 for the tile that holds rows r0 .. r0 + 3
-  const long long base = (r0 - r0 % kTileRows) / W * W - w;
+  const long long base = col_base + (r0 - r0 % kTileRows) / W * W - w;
   T acc[kRowsPerThread] = {T(0), T(0), T(0), T(0)};
 #pragma unroll 4
   for (int k = 0; k < k_slots; ++k) {
@@ -113,7 +117,7 @@ banded_spmv_kernel(const T* __restrict__ data, const int* __restrict__ lcols,
 template <typename T>
 int launch(const void* data, const void* lcols, const void* x, void* y,
            long long n, long long n_pad, long long n_cols, int k_slots,
-           long long w, long long W, void* stream) {
+           long long w, long long W, long long col_base, void* stream) {
   // rows r0 .. r0 + 3 of every slot are read as one 16-byte piece, and
   // y (allocated by the caller) is written so
   const bool aligned = reinterpret_cast<std::uintptr_t>(data) % 16 == 0 &&
@@ -130,7 +134,7 @@ int launch(const void* data, const void* lcols, const void* x, void* y,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int*>(lcols),
       static_cast<const T*>(x), static_cast<T*>(y), n, n_pad, n_cols,
-      k_slots, w, W);
+      k_slots, w, W, col_base);
   return (int)cudaGetLastError();
 }
 
@@ -140,19 +144,21 @@ extern "C" {
 
 // data: [K, n_pad] values; lcols: [K, n_pad] int32 window-local columns;
 // x: [n_cols]; y: [n].  All device pointers; data, lcols and y 16-byte
-// aligned.
+// aligned.  col_base: see the top of this file.
 int banded_spmv_f32(const void* data, const void* lcols, const void* x,
                     void* y, long long n, long long n_pad, long long n_cols,
-                    int k_slots, long long w, long long W, void* stream) {
+                    int k_slots, long long w, long long W,
+                    long long col_base, void* stream) {
   return launch<float>(data, lcols, x, y, n, n_pad, n_cols, k_slots, w, W,
-                       stream);
+                       col_base, stream);
 }
 
 int banded_spmv_f64(const void* data, const void* lcols, const void* x,
                     void* y, long long n, long long n_pad, long long n_cols,
-                    int k_slots, long long w, long long W, void* stream) {
+                    int k_slots, long long w, long long W,
+                    long long col_base, void* stream) {
   return launch<double>(data, lcols, x, y, n, n_pad, n_cols, k_slots, w, W,
-                        stream);
+                        col_base, stream);
 }
 
 const char* banded_spmv_error_string(int code) {

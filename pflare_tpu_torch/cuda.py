@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # n long long, i int.  Each returns an int CUDA error code.
 _EXPORTS = {
     "dia_spmv": "pppnnpip",
-    "banded_spmv": "ppppnnninnp",
+    "banded_spmv": "ppppnnninnnp",
 }
 KERNELS = tuple(_EXPORTS)
 _CTYPES = {"p": ctypes.c_void_p, "n": ctypes.c_longlong, "i": ctypes.c_int}

@@ -145,14 +145,16 @@ def build_inverse(A_scipy: sp.csr_matrix, inverse_type: InverseType,
                   poly_order: int = 6, sparsity_order: int = 1,
                   matrix_free: bool = False, diag_scale: bool = False,
                   coefficients=None, seed: int = 17,
-                  poly_plan=None) -> Inverse:
+                  poly_plan=None, qr_reduce=None) -> Inverse:
     """Compute a host approximate inverse of ``A_scipy``.  The precision
     follows the matrix: an f32 matrix gives an f32 Krylov basis and f32
     tolerances.  ``coefficients`` skips the polynomial iteration (the
     reference's coefficient reuse protocol, src/Approx_Inverse_Setup.F90:
     52-64).  ``poly_plan``, a ``FixedSparsityPolyPlan`` stored by a
     reuse-enabled setup, evaluates an assembled power or Arnoldi
-    polynomial on its stored plan when it still fits the matrix."""
+    polynomial on its stored plan when it still fits the matrix.
+    ``qr_reduce`` factors the power basis (the row mesh's TSQR,
+    parallel/tsqr.py)."""
     inverse_type = InverseType(inverse_type)
     A = A_scipy
     n = A.shape[0]
@@ -236,7 +238,8 @@ def build_inverse(A_scipy: sp.csr_matrix, inverse_type: InverseType,
     if coefficients is not None:
         coeffs = np.asarray(coefficients, dtype=np.float64)
     elif inverse_type == InverseType.POWER:
-        coeffs = coefficients_power(matvec, n, poly_order, dtype, seed=seed)
+        coeffs = coefficients_power(matvec, n, poly_order, dtype, seed=seed,
+                                    qr_reduce=qr_reduce)
     else:
         coeffs = coefficients_arnoldi(matvec, n, poly_order, dtype, seed=seed)
 

@@ -1,0 +1,409 @@
+"""Row-sharded operators: neighbour halo exchange or all-gather.
+
+Ported from ``pflare_tpu.parallel.halo``.  The reference's SpMV
+communication is a PetscSF halo exchange: each rank receives the x
+entries its off-diagonal block needs (SURVEY.md §2.4,
+src/PMISR_Module.F90:174-180 Ad/Ao split).  On a row mesh whose partition
+is banded (every structured level and most RCM-ordered unstructured
+ones) each shard's columns lie in its own block and one neighbour block
+on each side, so the exchange is two neighbour copies:
+
+    y_s = A_s @ concat(x_{s-1}, x_s, x_{s+1})
+
+``HaloELL`` is that operator.  Each active shard holds its row block as
+the container the serial operator uses (``air/fullspace.py::make_op``'s
+choice): a DIA or banded block with its own offsets or bandwidth and a
+column base (the shard's extended window starts ``w`` entries before its
+own block), so the DIA and banded kernels run once per active shard, on
+the shard's rows.  The gather containers (TELL, ELL, DELL) are plain
+PyTorch, whose small gathers cost a launch each whatever their length,
+so the shards' blocks stack into one container over the shards' windows
+laid end to end: one gather a slot for the whole mesh.
+``RowShardedOp`` is the fallback when the band check fails: each shard
+reads the all-gathered vector, at column base ``s * w``.  ``from_scipy``
+cuts the blocks from a host matrix; ``from_op`` cuts the same blocks
+from a device operator's own tensors, as a solve shards its hierarchy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+import torch.nn.functional as F
+
+from ..sparse import ELL, TELL
+from ..sparse.banded import TILE_ROWS, BandedSpMV
+from ..sparse.dell import DELL, PADCOL
+from ..sparse.dia import DIA
+from ..sparse.pattern import SparsityPattern
+from ..sparse.dtypes import torch_dtype
+from .mesh import _fit, make_mesh, padded_rows
+
+
+def _block(kind: str, M: sp.csr_matrix, dtype, device, col_base: int):
+    """One shard's container: M's columns index the vector the shard
+    reads; DIA and banded take their offsets and band about
+    ``col_base + i`` (the others gather at M's columns as they are)."""
+    if M.nnz == 0:
+        return None
+    if kind == "dia":
+        return DIA.from_scipy(M, dtype, col_base).to(device)
+    if kind == "banded":
+        return BandedSpMV.from_scipy(M, dtype, col_base).to(device)
+    if kind == "tell":
+        return TELL.from_scipy(M, dtype).to(device)
+    if kind == "ell":
+        return ELL.from_scipy(M, dtype).to(device)
+    if kind == "dell":
+        return DELL.from_scipy(M, dtype, device)
+    raise ValueError(f"unknown container kind {kind!r}")
+
+
+def _not_banded():
+    raise ValueError(
+        "matrix is not banded for this partition: a row needs columns "
+        "beyond the neighbouring shards (use the all-gather path or fewer "
+        "shards)")
+
+
+# containers whose product is a plain PyTorch gather: the shards' blocks
+# stack into one (see the module docstring)
+GATHER_KINDS = ("tell", "ell", "dell")
+
+
+class _ShardedOp:
+    """One container per active shard (None for a shard without
+    entries), or for the gather kinds one stacked container of every
+    active shard's rows; the rest of the ``S`` shards own padding
+    only."""
+
+    halo = False
+
+    def __init__(self, blocks, mesh, w: int, n_src: int, dtype, active: int,
+                 stacked: bool = False, label: str = ""):
+        self.blocks = blocks
+        self.mesh = mesh
+        self.w = int(w)          # rows per shard
+        self.n_src = int(n_src)  # length of the vector a shard reads
+        self.dtype = dtype
+        self.active = int(active)
+        self.stacked = stacked
+        self.label = label
+
+    @property
+    def n_pad(self) -> int:
+        return self.w * self.mesh.size
+
+    @property
+    def shape(self):
+        return (self.n_pad, self.n_pad)
+
+    @classmethod
+    def from_scipy(cls, A, mesh, dtype=None, n_pad=None, kind=None,
+                   label: str = "", active=None):
+        """From a host matrix on ``S`` row blocks of ``n_pad / S`` rows
+        (default the rows padded to a multiple of ``S``); ``HaloELL``
+        raises ValueError when that partition is not banded.  ``kind``:
+        the shards' container (default ``make_op``'s choice for the whole
+        matrix); ``dtype`` defaults to A's; ``active``: the shards that
+        own rows (default those with any of A's rows); ``label`` names the
+        operator in the mesh's log."""
+        A = sp.csr_matrix(A)
+        A.sort_indices()
+        S = mesh.size
+        n = A.shape[0]
+        n_pad = padded_rows(n, mesh) if n_pad is None else int(n_pad)
+        if n_pad % S or n_pad < n:
+            raise ValueError(f"n_pad {n_pad} must be a multiple of the mesh "
+                             f"size {S} and at least the rows {n}")
+        w = n_pad // S
+        if w == 0:
+            raise ValueError("empty shards")
+        if active is None:
+            active = min(S, -(-n // w))
+        cls._check(A, w)
+        if kind is None:
+            from ..air.fullspace import op_kind
+
+            kind = op_kind(A)
+        dtype = dtype or torch_dtype(A.data.dtype)
+        n_src = cls._n_src(w, A.shape[1])
+        stacked = kind in GATHER_KINDS
+        n_cols = active * n_src if stacked and cls.halo else n_src
+        parts = []
+        for s in range(active):
+            rows = sp.csr_matrix(A[min(s * w, n):min((s + 1) * w, n)])
+            indptr = np.concatenate([rows.indptr, np.full(
+                w - rows.shape[0], rows.indptr[-1])])
+            # a stacked block reads shard s's window at s * n_src of the
+            # windows laid end to end (a halo's; the all-gathered vector
+            # is one source for every shard)
+            offset = s * n_src if stacked and cls.halo else 0
+            parts.append(sp.csr_matrix(
+                (rows.data, rows.indices - cls._shift(s, w) + offset,
+                 indptr), shape=(w, n_cols)))
+        if stacked:
+            blocks = [_block(kind, sp.vstack(parts, format="csr"), dtype,
+                             mesh.device, 0)]
+        else:
+            blocks = [_block(kind, M, dtype, mesh.device,
+                             s * w - cls._shift(s, w))
+                      for s, M in enumerate(parts)]
+        return cls(blocks, mesh, w, n_src, dtype, active, stacked, label)
+
+    @classmethod
+    def from_op(cls, op, mesh, label: str = "", active=None):
+        """From a device operator whose rows are ``S`` equal blocks (padded
+        by ``mesh._pad_op_rows_to``): the same blocks ``from_scipy`` cuts
+        from the host matrix, cut from the operator's own tensors on their
+        device.  No value is read back: DIA and banded blocks read their
+        offsets or bandwidths and the band check back as one small tensor,
+        a DELL the band check, and a TELL or ELL checks and shifts its
+        host pattern.  ``active`` defaults to every shard."""
+        from .mesh import _kind_of
+
+        S = mesh.size
+        n_pad, n_cols = op.shape
+        if n_pad % S:
+            raise ValueError(f"rows {n_pad} must be a multiple of the mesh "
+                             f"size {S}")
+        w = n_pad // S
+        active = S if active is None else int(active)
+        kind = _kind_of(op)
+        n_src = cls._n_src(w, n_cols)
+        if kind == "dia":
+            blocks = cls._dia_blocks(op, w, active, n_src)
+        elif kind == "banded":
+            blocks = cls._banded_blocks(op, w, active, n_src)
+        else:
+            blocks = [cls._stacked_block(kind, op, w, active, n_src)]
+        return cls(blocks, mesh, w, n_src, op.dtype, active,
+                   kind in GATHER_KINDS, label)
+
+    @classmethod
+    def _read_back(cls, t, far):
+        """The ints ``t`` ([active, k]) on the host, read back in one copy
+        with a halo's band check: an entry ``far`` from its shard (past
+        the neighbouring blocks) raises ValueError."""
+        if cls.halo:
+            t = torch.cat([t, far.any().long().expand(t.shape[0], 1)], dim=1)
+        got = t.cpu().numpy()
+        if not cls.halo:
+            return got
+        if got[0, -1]:
+            _not_banded()
+        return got[:, :-1]
+
+    @classmethod
+    def _dia_blocks(cls, op, w, active, n_src):
+        """Shard s keeps the offsets with an entry in its rows; an entry
+        of row s w + r on offset ``off`` reads source column
+        s w + r + off - shift(s)."""
+        K, dev = len(op.offsets), op.data.device
+        data = op.data[:, :active * w].reshape(K, active, w).transpose(0, 1)
+        live = data != 0                                   # [active, K, w]
+        rel = (torch.arange(w, device=dev)[None, :] + op.col_base
+               + torch.as_tensor(op.offsets, device=dev)[:, None])
+        used = cls._read_back(live.any(-1).long(),
+                              live & ((rel >= 2 * w) | (rel < -w)))
+        blocks = []
+        for s in range(active):
+            ks = np.flatnonzero(used[s])
+            if not len(ks):
+                blocks.append(None)
+                continue
+            blocks.append(DIA(
+                [op.offsets[k] for k in ks],
+                data[s, torch.as_tensor(ks, device=dev)].contiguous(),
+                (w, n_src), s * w - cls._shift(s, w) + op.col_base))
+        return blocks
+
+    @classmethod
+    def _banded_blocks(cls, op, w, active, n_src):
+        """Shard s keeps the slots up to its last entry and its own
+        bandwidth b about row s w + r; each entry's window-local column
+        is re-based on the block's window blocks of width W(b)."""
+        K, dev = op.data.shape[0], op.data.device
+        rows = torch.arange(op.data.shape[1], device=dev)
+        # the x index of each slot (sparse/banded.py's window arithmetic)
+        col = ((rows // TILE_ROWS * TILE_ROWS) // op.W * op.W - op.w
+               + op.col_base)[None, :] + op.lcols.long()
+        data = op.data[:, :active * w].reshape(K, active, w).transpose(0, 1)
+        rel = (col[:, :active * w].reshape(K, active, w).transpose(0, 1)
+               - torch.arange(active, device=dev)[:, None, None] * w)
+        live = data != 0                                   # [active, K, w]
+        r = torch.arange(w, device=dev)
+        band = torch.where(live, (rel - r).abs(), 0).amax(dim=(1, 2))
+        got = cls._read_back(
+            torch.cat([band[:, None], live.any(-1).long()], dim=1),
+            live & ((rel >= 2 * w) | (rel < -w)))
+        n_tiles = -(-w // TILE_ROWS) * TILE_ROWS
+        blocks = []
+        for s in range(active):
+            ks = np.flatnonzero(got[s, 1:])
+            if not len(ks):
+                blocks.append(None)
+                continue
+            k_s, b = int(ks[-1]) + 1, int(got[s, 0])
+            W = -(-(2 * b + TILE_ROWS) // 128) * 128
+            base = (r // TILE_ROWS * TILE_ROWS) // W * W
+            lcols = torch.where(live[s, :k_s], rel[s, :k_s] + b - base, 0)
+            blocks.append(BandedSpMV(
+                F.pad(data[s, :k_s], (0, n_tiles - w)).contiguous(),
+                F.pad(lcols.to(torch.int32), (0, n_tiles - w)).contiguous(),
+                w, n_src, b, W, s * w - cls._shift(s, w)))
+        return blocks
+
+    @classmethod
+    def _stacked_block(cls, kind, op, w, active, n_src):
+        """The gather kinds' one container over the active shards' rows,
+        each column moved to its shard's source: ``- shift(s)``, and for a
+        halo ``+ s n_src`` (the windows laid end to end)."""
+        m = active * w
+        n_stack = active * n_src if cls.halo else n_src
+        if kind == "dell":
+            cols = op.cols[:m].long()
+            live = cols < PADCOL
+            s = torch.arange(m, device=cols.device)[:, None] // w
+            if cls.halo and bool((live & ((s - torch.div(
+                    cols, w, rounding_mode="floor")).abs() > 1)).any()):
+                _not_banded()
+            move = -cls._shift(s, w) + (s * n_src if cls.halo else 0)
+            return DELL(op.data[:m], torch.where(live, cols + move, PADCOL)
+                        .to(torch.int32), n_stack)
+        pat = op.pattern
+        row_len = np.diff(pat.indptr[:m + 1])
+        if cls.halo and pat.nnz:
+            # each row's least and greatest column bound its entries
+            full = np.flatnonzero(row_len)
+            lo = np.minimum.reduceat(pat.indices, pat.indptr[full]) // w
+            hi = np.maximum.reduceat(pat.indices, pat.indptr[full]) // w
+            if np.any(lo < full // w - 1) or np.any(hi > full // w + 1):
+                _not_banded()
+        s_row = np.arange(m, dtype=np.int64) // w
+        move = (np.zeros(m, dtype=np.int64) - cls._shift(s_row, w)
+                + (s_row * n_src if cls.halo else 0))
+        pattern = SparsityPattern(pat.indptr[:m + 1],
+                                  pat.indices + np.repeat(move, row_len),
+                                  (m, n_stack))
+        # every slot moves with its row: a padding slot (value 0) then
+        # reads its row's source window, inside the stacked vector
+        move = torch.as_tensor(move, device=op.data.device)
+        if kind == "ell":
+            return ELL(pattern, op.data[:m],
+                       (op.cols[:m] + move[:, None]).to(torch.int32))
+        return TELL(pattern, op.data[:, :m].contiguous(),
+                    (op.cols[:, :m] + move[None, :]).to(torch.int32))
+
+    def matvec(self, x):
+        src = self._sources(x)
+        if self.stacked:
+            blk = self.blocks[0]
+            ys = [x.new_zeros(self.active * self.w) if blk is None else
+                  blk.matvec(src.reshape(-1) if self.halo else src[0])]
+        else:
+            ys = [x.new_zeros(self.w) if blk is None else blk.matvec(src[s])
+                  for s, blk in enumerate(self.blocks)]
+        pad = (self.mesh.size - self.active) * self.w
+        if pad:
+            ys.append(x.new_zeros(pad))
+        return torch.cat(ys)
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+    def to_scipy(self) -> sp.csr_matrix:
+        """The operator on the padded row space, from its blocks."""
+        rows, cols, vals = [], [], []
+        for s, blk in enumerate(self.blocks):
+            if blk is None:
+                continue
+            coo = blk.to_scipy().tocoo()
+            shard = coo.row // self.w if self.stacked else s
+            local = coo.col - (shard * self.n_src
+                               if self.stacked and self.halo else 0)
+            rows.append(coo.row + (0 if self.stacked else s * self.w))
+            cols.append(local + self._shift(shard, self.w))
+            vals.append(coo.data)
+        n_cols = self.n_pad if self.halo else self.n_src
+        if not rows:
+            return sp.csr_matrix((self.n_pad, n_cols))
+        M = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                  np.concatenate(cols))),
+                          shape=(self.n_pad, n_cols))
+        M.sort_indices()
+        return M
+
+
+class HaloELL(_ShardedOp):
+    """A square operator on a banded row partition: each shard reads its
+    extended window ``[(s-1) w, (s+2) w)``, filled by two neighbour
+    exchanges (``Mesh.halo``), as its container's column base ``w``."""
+
+    halo = True
+
+    @staticmethod
+    def _check(A, w):
+        rows = np.repeat(np.arange(A.shape[0], dtype=np.int64),
+                         np.diff(A.indptr))
+        if A.nnz and np.any(np.abs(rows // w - A.indices // w) > 1):
+            _not_banded()
+
+    @staticmethod
+    def _n_src(w, n_cols):
+        return 3 * w
+
+    @staticmethod
+    def _shift(s, w):
+        """The global column of a shard's source entry 0."""
+        return (s - 1) * w
+
+    def _sources(self, x):
+        S, w = self.mesh.size, self.w
+        blocks = _fit(x, self.n_pad).view(S, w)[:self.active]
+        return self.mesh.halo(blocks, self.label)
+
+
+class RowShardedOp(_ShardedOp):
+    """A row-sharded operator on any partition: each shard reads the
+    all-gathered vector, its container's column base its row start."""
+
+    @staticmethod
+    def _check(A, w):
+        pass
+
+    @staticmethod
+    def _n_src(w, n_cols):
+        return n_cols
+
+    @staticmethod
+    def _shift(s, w):
+        return 0
+
+    def _sources(self, x):
+        full = self.mesh.all_gather(_fit(x, self.n_src), self.label)
+        return [full] * self.active
+
+
+class HaloSpMV:
+    """Banded-partition SpMV with explicit neighbour exchange, built from a
+    scipy matrix; ``matvec`` takes and returns unpadded vectors."""
+
+    def __init__(self, A, mesh=None, n_shards: int | None = None):
+        A = sp.csr_matrix(A)
+        if mesh is None:
+            mesh = make_mesh(n_shards)
+        self.mesh = mesh
+        self.op = HaloELL.from_scipy(A, mesh)
+        self.n = A.shape[0]
+        self.w = self.op.w
+
+    def matvec(self, x):
+        x = torch.as_tensor(np.asarray(x) if not isinstance(
+            x, torch.Tensor) else x, dtype=self.op.dtype,
+            device=self.mesh.device)
+        return self.op.matvec(_fit(x, self.op.n_pad))[: self.n]
+
+    def __matmul__(self, x):
+        return self.matvec(x)

@@ -2,11 +2,14 @@
 
 For matrices of bounded bandwidth w, rows go in tiles of ``TILE_ROWS``;
 the columns tile t touches lie in two consecutive aligned W-blocks of the
-zero-padded ``x_pad`` (``x_pad[i] = x[i - w]``), starting at block
-j(t) = (t * TILE_ROWS) // W.  Slot k of row i stores ``data[k, i]`` and
-the window-local column ``lcols[k, i]`` in [0, 2W).  This is the layout
-of the reference (pflare_tpu/sparse/banded.py:110-136), so ``to_scipy``
-carries over unchanged.
+zero-padded ``x_pad`` (``x_pad[i] = x[col_base + i - w]``), starting at
+block j(t) = (t * TILE_ROWS) // W.  Slot k of row i stores ``data[k, i]``
+and the window-local column ``lcols[k, i]`` in [0, 2W), so it reads
+x[col_base + j(t) * W - w + lcols[k, i]], as 0 outside [0, n_cols).  With
+``col_base`` 0 this is the layout of the reference
+(pflare_tpu/sparse/banded.py:110-136); a shard of a row-sharded operator
+(parallel/halo.py) keeps its block's own bandwidth and reads its extended
+window of x from its own block's start.
 
 On a CUDA tensor ``matvec`` launches the hand-written kernel
 ``csrc/banded_spmv.cu``; on a CPU tensor it runs ``banded_spmv_plain``,
@@ -18,7 +21,6 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 import torch
-import torch.nn.functional as F
 
 from .. import cuda
 from .dtypes import numpy_dtype
@@ -30,24 +32,26 @@ _ENVELOPE_BYTES = 12 * 1024 * 1024
 KERNEL_LAUNCHES = 0  # launches of csrc/banded_spmv.cu since the last reset
 
 
-def banded_spmv_plain(data, lcols, x, n: int, w: int, W: int):
-    """Plain PyTorch product: build x_pad, gather it at each row's window
-    base + lcols, and sum data * gathered over the slots in order."""
+def banded_spmv_plain(data, lcols, x, n: int, w: int, W: int,
+                      col_base: int = 0):
+    """Plain PyTorch product: gather x at each row's window start + lcols
+    (0 outside x), and sum data * gathered over the slots in order."""
     K, n_pad = data.shape
-    j_last = ((n_pad // TILE_ROWS - 1) * TILE_ROWS) // W
-    total = (j_last + 2) * W
-    x_pad = F.pad(x, (w, max(total - w - x.shape[0], 0)))
-    # x_pad index of each row's window slot 0: j(t) * W for its tile t
+    n_cols = x.shape[0]
+    # x index of each row's window slot 0: col_base + j(t) * W - w
     rows = torch.arange(n_pad, device=x.device)
-    base = (rows // TILE_ROWS * TILE_ROWS) // W * W
+    base = (rows // TILE_ROWS * TILE_ROWS) // W * W + (col_base - w)
     y = None
     for k in range(K):
-        term = data[k] * x_pad[base + lcols[k]]
+        c = base + lcols[k]
+        inside = (c >= 0) & (c < n_cols)
+        term = data[k] * torch.where(inside, x[c.clamp(0, n_cols - 1)], 0.0)
         y = term if y is None else y + term
     return y[:n]
 
 
-def banded_spmv_cuda(data, lcols, x, n: int, n_cols: int, w: int, W: int):
+def banded_spmv_cuda(data, lcols, x, n: int, n_cols: int, w: int, W: int,
+                     col_base: int = 0):
     """Launch ``csrc/banded_spmv.cu`` on PyTorch's current stream (no
     synchronisation)."""
     global KERNEL_LAUNCHES
@@ -73,7 +77,7 @@ def banded_spmv_cuda(data, lcols, x, n: int, n_cols: int, w: int, W: int):
     y = torch.empty(n, dtype=data.dtype, device=data.device)
     cuda.launch("banded_spmv", data.dtype, data.data_ptr(), lcols.data_ptr(),
                 x.data_ptr(), y.data_ptr(), n, n_pad, n_cols, K, w, W,
-                cuda.stream_handle(data.device))
+                col_base, cuda.stream_handle(data.device))
     KERNEL_LAUNCHES += 1
     return y
 
@@ -82,13 +86,15 @@ class BandedSpMV:
     """data ``[K, n_pad]`` values; lcols ``[K, n_pad]`` int32 window-local
     columns (see module docstring); pad slots hold data 0."""
 
-    def __init__(self, data, lcols, n: int, n_cols: int, w: int, W: int):
+    def __init__(self, data, lcols, n: int, n_cols: int, w: int, W: int,
+                 col_base: int = 0):
         self.data = data
         self.lcols = lcols
         self.n = int(n)
         self.n_cols = int(n_cols)
         self.w = int(w)          # one-sided bandwidth
         self.W = int(W)          # aligned block width (multiple of 128)
+        self.col_base = int(col_base)
 
     @property
     def shape(self):
@@ -103,13 +109,14 @@ class BandedSpMV:
         return int(torch.count_nonzero(self.data))
 
     @staticmethod
-    def bandwidth(A: sp.csr_matrix) -> int:
+    def bandwidth(A: sp.csr_matrix, col_base: int = 0) -> int:
+        """max |j - col_base - i| over the entries (i, j)."""
         A = sp.csr_matrix(A)
         if A.nnz == 0:
             return 0
         rows = np.repeat(np.arange(A.shape[0], dtype=np.int64),
                          np.diff(A.indptr))
-        return int(np.abs(A.indices - rows).max())
+        return int(np.abs(A.indices - col_base - rows).max())
 
     @staticmethod
     def viable(A) -> bool:
@@ -126,12 +133,14 @@ class BandedSpMV:
         return 2 * TILE_ROWS * K * W * 4 <= _ENVELOPE_BYTES
 
     @staticmethod
-    def from_scipy(A, dtype=None) -> "BandedSpMV":
-        """From a scipy matrix; ``dtype`` (torch) defaults to the matrix's."""
+    def from_scipy(A, dtype=None, col_base: int = 0) -> "BandedSpMV":
+        """From a scipy matrix whose columns index x; ``dtype`` (torch)
+        defaults to the matrix's.  The band is taken about column
+        ``col_base + i`` of row i."""
         A = sp.csr_matrix(A)
         A.sort_indices()
         n, n_cols = A.shape
-        w = BandedSpMV.bandwidth(A)
+        w = BandedSpMV.bandwidth(A, col_base)
         W = -(-(2 * w + TILE_ROWS) // 128) * 128
         K = max(1, int(np.diff(A.indptr).max()))
         n_pad = -(-n // TILE_ROWS) * TILE_ROWS
@@ -145,24 +154,25 @@ class BandedSpMV:
         # x_pad[i] = x[i - w]; tile t touches x_pad[t*TR, t*TR + TR + 2w),
         # inside blocks j(t) and j(t)+1 with j(t) = (t*TR) // W
         j = (rows // TILE_ROWS * TILE_ROWS) // W
-        local = (A.indices + w - j * W).astype(np.int64)
+        local = (A.indices - col_base + w - j * W).astype(np.int64)
         if A.nnz and (local.min() < 0 or local.max() >= 2 * W):
             raise ValueError("bandwidth accounting failed")
         data[slot, rows] = A.data.astype(ndt)
         lcols[slot, rows] = local.astype(np.int32)
         return BandedSpMV(torch.from_numpy(data), torch.from_numpy(lcols),
-                          n, n_cols, w, W)
+                          n, n_cols, w, W, col_base)
 
     def to(self, device) -> "BandedSpMV":
         return BandedSpMV(self.data.to(device), self.lcols.to(device),
-                          self.n, self.n_cols, self.w, self.W)
+                          self.n, self.n_cols, self.w, self.W, self.col_base)
 
     def matvec(self, x):
         if x.is_cuda:
             return banded_spmv_cuda(self.data, self.lcols, x, self.n,
-                                    self.n_cols, self.w, self.W)
+                                    self.n_cols, self.w, self.W,
+                                    self.col_base)
         return banded_spmv_plain(self.data, self.lcols, x, self.n, self.w,
-                                 self.W)
+                                 self.W, self.col_base)
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -173,7 +183,7 @@ class BandedSpMV:
         n_pad, K = data.shape
         rows = np.repeat(np.arange(n_pad), K)
         j = (rows // TILE_ROWS * TILE_ROWS) // self.W
-        cols = lcols.reshape(-1) + j * self.W - self.w
+        cols = lcols.reshape(-1) + j * self.W - self.w + self.col_base
         vals = data.reshape(-1)
         ok = ((vals != 0) & (cols >= 0) & (cols < self.n_cols)
               & (rows < self.n))

@@ -128,6 +128,17 @@ class DELL:
         return out
 
 
+class ShardedDELL(DELL):
+    """A DELL row-sharded over a mesh (parallel/mesh.py): its rows, a
+    multiple of the mesh's size, in equal blocks; ``label`` names it in
+    the mesh's log."""
+
+    def __init__(self, data, cols, n_cols: int, mesh, label: str = ""):
+        super().__init__(data, cols, n_cols)
+        self.mesh = mesh
+        self.label = label
+
+
 def _ridx(n: int, device, dtype=torch.int32):
     return torch.arange(n, dtype=dtype, device=device)
 
@@ -265,6 +276,37 @@ def _spgemm_drop_rows(a_data, a_cols, bc1, bd1, nb, tol, relative, lump,
                      diag_of_row=diag_of_row)
 
 
+def spgemm_drop_parts(a_data, a_cols, bc1, bd1, nb: int, tol: float,
+                      relative: bool, lump: bool, diag_of_row):
+    """drop(A @ B) of a block of A's rows against B's rows with their
+    sentinel (``bc1``/``bd1``, ``nb`` live rows), in row chunks of at most
+    ``_SPGEMM_CHUNK_LIMIT`` candidates: a list of (cols, vals), each chunk
+    compacted to its own width (one integer read back a chunk)."""
+    n = a_data.shape[0]
+    per_row = max(a_data.shape[1] * bd1.shape[1], 1)
+    ch = n if n * per_row <= _SPGEMM_CHUNK_LIMIT else max(
+        _SPGEMM_CHUNK_LIMIT // per_row, 1)
+    parts = []
+    for s in range(0, n, ch):
+        c, v = _spgemm_drop_rows(a_data[s:s + ch], a_cols[s:s + ch], bc1,
+                                 bd1, nb, float(tol), relative, lump,
+                                 diag_of_row[s:s + ch])
+        parts.append(compact(c, v, max(max_row_count(c), 1)))
+    return parts
+
+
+def stack_parts(parts):
+    """Row blocks of (cols, vals) stacked at the widest one's width."""
+    if len(parts) == 1:
+        return parts[0]
+    K_new = max(c.shape[1] for c, _ in parts)
+    c = torch.cat([_pad_cols(c, K_new) for c, _ in parts], dim=0)
+    v = torch.cat([torch.cat([v, v.new_zeros((v.shape[0],
+                                               K_new - v.shape[1]))], dim=1)
+                   for _, v in parts], dim=0)
+    return c, v
+
+
 def spgemm_drop_dell(A: DELL, B: DELL, tol: float, relative: bool,
                      lump: bool, diag_of_row=None) -> DELL:
     """Fused C = drop(A @ B), the device sibling of the native spgemm_drop
@@ -273,29 +315,33 @@ def spgemm_drop_dell(A: DELL, B: DELL, tol: float, relative: bool,
     ``_SPGEMM_CHUNK_LIMIT`` candidates, whose chunks are compacted as they
     come).  ``diag_of_row``: the column that counts as each row's
     protected diagonal (default the row index; the coarse-rows-only RAP
-    passes the global coarse positions)."""
+    passes the global coarse positions).
+
+    Row-sharded operands (``ShardedDELL`` on one mesh) take the
+    neighbour-only halo product when the partition is banded
+    (parallel/halo_spgemm.py), else the product over all of B, counted
+    as an all-gather of B; the result is row-sharded like A."""
     n = A.data.shape[0]
-    nb = B.data.shape[0]
-    bc1, bd1 = _sentinel_rows(B)
     if diag_of_row is None:
         diag_of_row = _ridx(n, A.device, A.cols.dtype)
-    per_row = max(A.K * B.K, 1)
-    ch = n if n * per_row <= _SPGEMM_CHUNK_LIMIT else max(
-        _SPGEMM_CHUNK_LIMIT // per_row, 1)
-    parts = []
-    for s in range(0, n, ch):
-        c, v = _spgemm_drop_rows(A.data[s:s + ch], A.cols[s:s + ch], bc1,
-                                 bd1, nb, float(tol), relative, lump,
-                                 diag_of_row[s:s + ch])
-        parts.append(compact(c, v, max(max_row_count(c), 1)))
-    if len(parts) == 1:
-        c, v = parts[0]
-    else:
-        K_new = max(c.shape[1] for c, _ in parts)
-        c = torch.cat([_pad_cols(c, K_new) for c, _ in parts], dim=0)
-        v = torch.cat([torch.cat([v, v.new_zeros((v.shape[0],
-                                                   K_new - v.shape[1]))],
-                                 dim=1) for _, v in parts], dim=0)
+    parts = None
+    if isinstance(A, ShardedDELL):
+        from ..parallel.halo_spgemm import halo_mesh_for, spgemm_drop_halo
+
+        mesh = halo_mesh_for(A, B)
+        if mesh is not None:
+            parts = spgemm_drop_halo(A, B, tol, relative, lump, mesh,
+                                     diag_of_row)
+        if parts is None:
+            A.mesh.all_gather(B.data, A.label)
+            A.mesh.all_gather(B.cols, A.label)
+    if parts is None:
+        bc1, bd1 = _sentinel_rows(B)
+        parts = spgemm_drop_parts(A.data, A.cols, bc1, bd1, B.data.shape[0],
+                                  tol, relative, lump, diag_of_row)
+    c, v = stack_parts(parts)
+    if isinstance(A, ShardedDELL):
+        return ShardedDELL(v, c, B.n_cols, A.mesh, A.label)
     return DELL(v, c, B.n_cols)
 
 
@@ -324,7 +370,29 @@ def extract_dell(A: DELL, row_idx, col_mask, col_newidx, n_cols_new: int,
     src/PETSc_Helperk.kokkos.cxx:1801-2403).  ``ensure_diag`` appends a
     structural diagonal slot where one is missing (the polynomial's c0 I
     term must land); ``compact_width=False`` keeps the input width (an
-    extraction only shrinks rows) and reads nothing back."""
+    extraction only shrinks rows) and reads nothing back.  A row-sharded
+    A takes the neighbour-only halo extraction when the partition is
+    banded (parallel/halo_spgemm.py::extract_halo), else gathers over all
+    of A, counted as an all-gather."""
+    out = None
+    if isinstance(A, ShardedDELL):
+        from ..parallel.halo_spgemm import extract_halo
+
+        out = extract_halo(A, row_idx, col_mask, col_newidx,
+                           bool(ensure_diag), A.mesh)
+        if out is None:
+            A.mesh.all_gather(A.data, A.label)
+            A.mesh.all_gather(A.cols, A.label)
+    if out is None:
+        out = _extract_rows(A, row_idx, col_mask, col_newidx, ensure_diag)
+    ncols, nvals = out
+    K_new = (max(max_row_count(ncols), 1) if compact_width
+             else ncols.shape[1])
+    c, v = compact(ncols, nvals, K_new)
+    return DELL(v, c, n_cols_new)
+
+
+def _extract_rows(A: DELL, row_idx, col_mask, col_newidx, ensure_diag):
     row_idx = row_idx.long()
     cols = A.cols[row_idx]
     vals = A.data[row_idx]
@@ -340,10 +408,7 @@ def extract_dell(A: DELL, row_idx, col_mask, col_newidx, n_cols_new: int,
                                               ridx)[:, None]], dim=1)
         nvals = torch.cat([nvals, nvals.new_zeros((nvals.shape[0], 1))],
                           dim=1)
-    K_new = (max(max_row_count(ncols), 1) if compact_width
-             else ncols.shape[1])
-    c, v = compact(ncols, nvals, K_new)
-    return DELL(v, c, n_cols_new)
+    return ncols, nvals
 
 
 # ~~~~~~~~~~ restriction plan: products onto one fixed pattern ~~~~~~~~~~

@@ -4,9 +4,13 @@ Matrices whose entries lie on a few column offsets -- structured stencils,
 and every full-space masked operator derived from them (air/fullspace.py)
 -- store one length-n_rows row of values per offset:
 
-    y[i] = sum_k data[k, i] * x[i + offset_k]
+    y[i] = sum_k data[k, i] * x[col_base + i + offset_k]
 
-On a CUDA tensor ``DIA.matvec`` launches the hand-written kernel
+with x read as 0 outside [0, n_cols).  ``col_base`` is 0 for a matrix
+over its own columns; a shard of a row-sharded operator
+(parallel/halo.py) keeps its block's offsets and reads its extended
+window of x (the neighbour slabs, then its own block) from its own block's
+start.  On a CUDA tensor ``DIA.matvec`` launches the hand-written kernel
 ``csrc/dia_spmv.cu``; on a CPU tensor it runs ``dia_spmv_plain``, the
 reference's XLA loop (pflare_tpu/sparse/dia.py:197-205) in PyTorch.
 """
@@ -29,10 +33,12 @@ BLOCK_THREADS = 256
 ROWS_PER_THREAD = {torch.float32: 4, torch.float64: 2}
 
 
-def dia_spmv_plain(data, offsets, x, n_rows: int, n_cols: int):
+def dia_spmv_plain(data, offsets, x, n_rows: int, n_cols: int,
+                   col_base: int = 0):
     """Plain PyTorch DIA product: x zero-padded so every shifted slice
     exists, one slice times one data row per offset, summed in ascending
     offset order."""
+    offsets = [off + col_base for off in offsets]
     pad_lo = max(0, -min(offsets))
     pad_hi = max(0, max(offsets) + n_rows - n_cols)
     xp = F.pad(x, (pad_lo, pad_hi))
@@ -43,13 +49,15 @@ def dia_spmv_plain(data, offsets, x, n_rows: int, n_cols: int):
     return y
 
 
-def dia_spmv_cuda(data, offsets, x, n_rows: int, n_cols: int):
+def dia_spmv_cuda(data, offsets, x, n_rows: int, n_cols: int,
+                  col_base: int = 0):
     """Launch ``csrc/dia_spmv.cu`` on PyTorch's current stream (no
     synchronisation).  ``data`` is ``[K, n_rows]``, ``x`` ``[n_cols]``,
     both contiguous CUDA tensors of one float dtype, at any alignment: the
     kernel reads 16 bytes at a time where data is 16-byte aligned and
     n_rows a multiple of its rows per thread, and one value at a time
-    otherwise."""
+    otherwise.  The kernel takes the column base inside its offsets:
+    x[col_base + i + off] is x[i + (off + col_base)]."""
     global KERNEL_LAUNCHES
     K = len(offsets)
     if not (data.is_cuda and x.is_cuda and data.device == x.device):
@@ -68,7 +76,7 @@ def dia_spmv_cuda(data, offsets, x, n_rows: int, n_cols: int):
         raise ValueError(f"dia_spmv_cuda: {K} offsets, the kernel takes "
                          f"1..{MAX_OFFSETS}")
     y = torch.empty(n_rows, dtype=data.dtype, device=data.device)
-    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    offs = np.ascontiguousarray(offsets, dtype=np.int64) + col_base
     cuda.launch("dia_spmv", data.dtype, data.data_ptr(), x.data_ptr(),
                 y.data_ptr(), n_rows, n_cols, offs.ctypes.data, K,
                 cuda.stream_handle(data.device))
@@ -77,12 +85,15 @@ def dia_spmv_cuda(data, offsets, x, n_rows: int, n_cols: int):
 
 
 class DIA:
-    """offsets: tuple of ints; data: ``[len(offsets), n_rows]`` tensor."""
+    """offsets: tuple of ints; data: ``[len(offsets), n_rows]`` tensor;
+    ``col_base``: the x index of row 0's diagonal (see module
+    docstring)."""
 
-    def __init__(self, offsets, data, shape):
+    def __init__(self, offsets, data, shape, col_base: int = 0):
         self.offsets = tuple(int(o) for o in offsets)
         self.data = data
         self.shape = (int(shape[0]), int(shape[1]))
+        self.col_base = int(col_base)
 
     @property
     def dtype(self):
@@ -93,18 +104,20 @@ class DIA:
         return int(torch.count_nonzero(self.data))
 
     @staticmethod
-    def from_scipy(M, dtype=None) -> "DIA":
-        """From a scipy matrix; ``dtype`` (torch) defaults to the matrix's."""
+    def from_scipy(M, dtype=None, col_base: int = 0) -> "DIA":
+        """From a scipy matrix whose columns index x; ``dtype`` (torch)
+        defaults to the matrix's.  The offsets are taken from
+        ``col_base``: entry (i, j) lies on offset j - col_base - i."""
         M = sp.csr_matrix(M)
         M.sort_indices()
         n_rows = M.shape[0]
         rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(M.indptr))
-        offs = M.indices - rows
+        offs = M.indices - col_base - rows
         uniq = np.unique(offs)
         ndt = numpy_dtype(dtype, M.data.dtype)
         data = np.zeros((len(uniq), n_rows), dtype=ndt)
         data[np.searchsorted(uniq, offs), rows] = M.data.astype(ndt)
-        return DIA(uniq.tolist(), torch.from_numpy(data), M.shape)
+        return DIA(uniq.tolist(), torch.from_numpy(data), M.shape, col_base)
 
     @staticmethod
     def viable(M, max_offsets: int = 8, max_fill_ratio: float = 3.0) -> bool:
@@ -119,15 +132,18 @@ class DIA:
                 and n_off * M.shape[0] <= max_fill_ratio * M.nnz)
 
     def to(self, device) -> "DIA":
-        return DIA(self.offsets, self.data.to(device), self.shape)
+        return DIA(self.offsets, self.data.to(device), self.shape,
+                   self.col_base)
 
     def matvec(self, x):
         n_rows, n_cols = self.shape
         if not self.offsets:
             return torch.zeros(n_rows, dtype=self.data.dtype, device=x.device)
         if x.is_cuda:
-            return dia_spmv_cuda(self.data, self.offsets, x, n_rows, n_cols)
-        return dia_spmv_plain(self.data, self.offsets, x, n_rows, n_cols)
+            return dia_spmv_cuda(self.data, self.offsets, x, n_rows, n_cols,
+                                 self.col_base)
+        return dia_spmv_plain(self.data, self.offsets, x, n_rows, n_cols,
+                              self.col_base)
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -138,7 +154,7 @@ class DIA:
         rows_l, cols_l, vals_l = [], [], []
         for k, off in enumerate(self.offsets):
             i = np.arange(n_rows)
-            j = i + off
+            j = i + off + self.col_base
             ok = (j >= 0) & (j < n_cols) & (data[k] != 0)
             rows_l.append(i[ok])
             cols_l.append(j[ok])

@@ -1,4 +1,4 @@
-"""The numpy dtype of a torch float dtype."""
+"""The numpy dtype of a torch float dtype, and back."""
 
 from __future__ import annotations
 
@@ -19,3 +19,11 @@ def numpy_dtype(dtype, default) -> np.dtype:
             raise ValueError(f"unsupported dtype {dtype}")
         return _TO_NUMPY[dtype]
     return np.dtype(dtype)
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch float dtype of a numpy float32 or float64 ``dtype``."""
+    for t, n in _TO_NUMPY.items():
+        if n == np.dtype(dtype):
+            return t
+    raise ValueError(f"unsupported dtype {dtype}")

@@ -8,7 +8,8 @@ segment sum over the product triples.  Ported from
 its same-pattern re-setup, ``device_tables`` with ``plan_execute`` and
 ``poly_execute`` the device re-setup (``air/device_resetup.py``).  The
 device half works on CSR value vectors, the space the plans index, not
-on ELL slots as the reference's ``execute`` does.
+on ELL slots as the reference's ``execute`` does, and its segment sums
+add each output's terms in the host's order on any device.
 """
 
 from __future__ import annotations
@@ -38,21 +39,52 @@ def take(values, index1):
     return F.pad(values, (1, 0))[index1]
 
 
-def segment_sum(values, out, n_out: int):
-    """Sum of ``values`` into ``n_out`` slots by the index tensor ``out``.
-    It is ``index_add_``: on the CPU a sequential pass in index order (the
-    order the host plans sum in), on a CUDA device atomic adds, whose
-    order, and so the last bits of each sum, change from run to run."""
-    return torch.zeros(n_out, dtype=values.dtype,
-                       device=values.device).index_add_(0, out, values)
+def segment_sum(values, lengths):
+    """Sums of consecutive runs of ``values``: run i is the next
+    ``lengths[i]`` terms (an int64 tensor), added one after the other in
+    index order from 0, as a CPU ``index_add_`` into zeros adds a sorted
+    index.  ``torch.segment_reduce`` on 2-D data runs one sequential loop
+    per segment on the CPU and on a CUDA device alike, so a card's sums
+    equal the CPU's bit for bit and do not change from run to run (an
+    ``index_add_`` on a card adds atomically, in no fixed order)."""
+    return torch.segment_reduce(values[:, None], "sum", lengths=lengths,
+                                axis=0, unsafe=True, initial=0.0)[:, 0]
 
 
-def plan_execute(tables: dict, a_flat, b_flat, nnz_out: int):
+def ordered_dot(a, b):
+    """sum(a * b) over a fixed pairwise tree of elementwise adds, each
+    product and each sum rounded on its own: the same bits on a card as on
+    the CPU (a library dot's reduction order differs between devices)."""
+    t = a * b
+    if t.shape[0] == 0:
+        return t.new_zeros(())
+    while t.shape[0] > 1:
+        h = t.shape[0] // 2
+        t = torch.cat([t[:h] + t[h:2 * h], t[2 * h:]])
+    return t[0]
+
+
+def ordered_sum(terms):
+    """terms[0] + terms[1] + ... in index order (separate roundings)."""
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+def run_lengths(out, n_out: int, device):
+    """The run lengths of a nondecreasing host index array ``out`` over
+    ``n_out`` slots, as the int64 tensor ``segment_sum`` takes."""
+    return torch.as_tensor(np.bincount(np.asarray(out, dtype=np.int64),
+                                       minlength=n_out), device=device)
+
+
+def plan_execute(tables: dict, a_flat, b_flat):
     """C values in CSR order from A's and B's CSR values (device tensors)
     by the tables of ``SpGEMMPlan.device_tables``: gather, multiply,
     segment sum."""
     return segment_sum(a_flat[tables["a_pos"]] * b_flat[tables["b_pos"]],
-                       tables["out_pos"], nnz_out)
+                       tables["lengths"])
 
 
 def _csr64(A):
@@ -94,16 +126,24 @@ class SpGEMMPlan:
                            minlength=self.pat_C.nnz)
 
     def device_tables(self, device) -> dict:
-        """The triples as index tensors on ``device``, in triple order
-        (grouped by output row; ``segment_sum`` needs no sorting)."""
-        return {key: index_tensor(getattr(self, key), device)
-                for key in ("a_pos", "b_pos", "out_pos")}
+        """The triples as index tensors on ``device``, sorted by output
+        entry with a stable sort on the device (they come grouped by
+        output row, and a stable sort keeps each entry's terms in triple
+        order, the order the host sums them in), and the run length of
+        each output entry."""
+        out = index_tensor(self.out_pos, device)
+        order = torch.sort(out, stable=True).indices
+        lengths = torch.bincount(out, minlength=self.pat_C.nnz)
+        del out
+        return {"a_pos": index_tensor(self.a_pos, device)[order],
+                "b_pos": index_tensor(self.b_pos, device)[order],
+                "lengths": lengths}
 
     def execute(self, a_flat, b_flat, tables=None):
         """C values in CSR order on the device of ``a_flat``."""
         if tables is None:
             tables = self.device_tables(a_flat.device)
-        return plan_execute(tables, a_flat, b_flat, self.pat_C.nnz)
+        return plan_execute(tables, a_flat, b_flat)
 
 
 def build_spgemm_plan(pat_A: SparsityPattern, pat_B: SparsityPattern,
@@ -197,7 +237,7 @@ class FixedSparsityPolyPlan:
         return {"inject": index_tensor(inject, device),
                 "diag": torch.as_tensor(diag, device=device),
                 "step": self.step_plan.device_tables(device),
-                "nnz_s": self.pat_S.nnz, "order": self.order}
+                "order": self.order}
 
     def execute(self, a_flat, coefficients, tables=None):
         """p(A) values on S in CSR order, on the device of ``a_flat``."""
@@ -215,6 +255,6 @@ def poly_execute(tables: dict, a_flat, coefficients):
     acc = coefficients[1] * a_on_s
     power = a_on_s
     for k in range(2, tables["order"] + 1):
-        power = plan_execute(tables["step"], power, a_flat, tables["nnz_s"])
+        power = plan_execute(tables["step"], power, a_flat)
         acc = acc + coefficients[k] * power
     return torch.where(tables["diag"], acc + coefficients[0], acc)

@@ -336,9 +336,8 @@ def test_device_resetup_card_matches_cpu(kw, syncs):
     """``install`` on the card: every rebuilt operator equals the same
     plan's on the CPU (a twin's own plan, one host hierarchy) within
     1e-12 of its largest entry in f64, at the bench's depth of 6 levels
-    (the card's atomic sums round otherwise, and the difference grows
-    down the levels: 3e-14 at level 2 to 5.6e-12 at level 7 of the
-    12-level constrained hierarchy, on an H100); the install
+    (the segment sums add in the CPU's order on the card, so only the
+    card's other reductions can part the two); the install
     synchronises only for the truncation probe's read (the SVDs of lAIR
     and the constraints read a flag each, not counted); the solve
     converges through the DIA kernel."""
@@ -374,6 +373,21 @@ def test_device_resetup_card_matches_cpu(kw, syncs):
     assert tdia.KERNEL_LAUNCHES > 0 and res.converged
     assert (np.linalg.norm(A2 @ res.x.cpu().numpy() - b)
             <= 1e-8 * np.linalg.norm(b))
+
+
+def test_dense_inverse_card_equals_cpu():
+    """The device re-setup's Gauss-Jordan coarse inverse computes the
+    same bits on the card as on the CPU, with no synchronisation."""
+    from pflare_tpu_torch.air.device_resetup import dense_inverse
+    from pflare_tpu_torch.utils.timers import count_syncs
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    D = torch.as_tensor(rng.standard_normal((300, 300))
+                        + 30.0 * np.eye(300))
+    got, n_sync = count_syncs(dense_inverse, D.to(dev))
+    assert n_sync == 0
+    assert torch.equal(got.cpu(), dense_inverse(D))
 
 
 def test_setup_device_card_matches_cpu():
@@ -450,3 +464,75 @@ def test_dg1_mesh_card_matches_cpu(tmp_path):
     x, norms = fv.solve_device(b[:fv.upload().top.n], max_it=6)
     assert tbanded.KERNEL_LAUNCHES >= 6
     assert float(norms[-1]) <= 1e-5 * float(norms[0])
+
+
+def _plain(blk, x):
+    """A shard container's plain version, at its column base."""
+    if isinstance(blk, DIA):
+        return tdia.dia_spmv_plain(blk.data, blk.offsets, x, *blk.shape,
+                                   blk.col_base)
+    return tbanded.banded_spmv_plain(blk.data, blk.lcols, x, blk.n, blk.w,
+                                     blk.W, blk.col_base)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-13)])
+def test_sharded_kernels_match_plain_on_card(dtype, tol):
+    """The DIA and banded kernels on the shard blocks of a row-sharded
+    operator (4 shards on the card, each block read from its extended
+    window at column base w) against their plain versions, and the
+    sharded product against the whole operator's kernel."""
+    from pflare_tpu_torch.parallel import HaloELL, make_mesh
+
+    dev = _card()
+    mesh = make_mesh(4)
+    rng = np.random.default_rng(5)
+    for kind, A in (("dia", tpf.adv_diff_2d(64)),
+                    ("banded", masked_level1()),
+                    ("banded", _random_band(4096, 150, 5))):
+        E = HaloELL.from_scipy(A, mesh, dtype=dtype, kind=kind)
+        x = torch.as_tensor(rng.standard_normal(E.n_pad), dtype=dtype,
+                            device=dev)
+        ext = mesh.halo(x.view(mesh.size, E.w)[:E.active])
+        for s, blk in enumerate(E.blocks):
+            assert type(blk).__name__ == {"dia": "DIA",
+                                          "banded": "BandedSpMV"}[kind]
+            y, ref = blk.matvec(ext[s]), _plain(blk, ext[s])
+            torch.cuda.synchronize()
+            assert float((y - ref).norm() / ref.norm()) < tol
+        whole = (DIA if kind == "dia" else BandedSpMV).from_scipy(
+            A, dtype=dtype).to(dev)
+        want = whole.matvec(x[:A.shape[0]])
+        got = E.matvec(x)
+        assert float((got[:A.shape[0]] - want).norm() / want.norm()) < tol
+        assert not got[A.shape[0]:].any()
+
+
+def test_segment_sum_card_equals_cpu():
+    """``segment_sum`` on the card equals the CPU's ``index_add_`` into
+    zeros bit for bit, on values of many magnitudes in runs of up to
+    4,000 terms, and a product plan's values equal the CPU's."""
+    from pflare_tpu_torch.sparse.pattern import SparsityPattern
+    from pflare_tpu_torch.sparse.spgemm import build_spgemm_plan, segment_sum
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    lengths = rng.integers(0, 300, size=5000)
+    lengths[::97] = 4000
+    total = int(lengths.sum())
+    vals = rng.standard_normal(total) * 10.0 ** rng.integers(-8, 8, total)
+    out = torch.as_tensor(np.repeat(np.arange(len(lengths)), lengths))
+    want = torch.zeros(len(lengths), dtype=torch.float64).index_add_(
+        0, out, torch.as_tensor(vals))
+    got = segment_sum(torch.as_tensor(vals, device=dev),
+                      torch.as_tensor(lengths, device=dev))
+    assert torch.equal(got.cpu(), want)
+    A = sp.csr_matrix(tpf.adv_diff_2d(64))
+    A.data = A.data * (1 + rng.standard_normal(A.nnz))
+    C = sp.csr_matrix(A @ A)
+    C.sort_indices()
+    plan = build_spgemm_plan(*(SparsityPattern(M.indptr, M.indices, M.shape)
+                               for M in (A, A, C)))
+    a = torch.as_tensor(A.data)
+    assert torch.equal(plan.execute(a.to(dev), a.to(dev)).cpu(),
+                       plan.execute(a, a))

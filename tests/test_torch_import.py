@@ -56,10 +56,15 @@ def test_device_setup_modules_stand_alone(module):
 
 
 @pytest.mark.parametrize("module", ["problems.io", "problems.gmsh",
-                                    "problems.fem_dg", "problems.fem_supg"])
+                                    "problems.fem_dg", "problems.fem_supg",
+                                    "parallel.mesh", "parallel.halo",
+                                    "parallel.halo_spgemm", "parallel.tsqr",
+                                    "parallel.repartition",
+                                    "utils.hostmem"])
 def test_problem_modules_stand_alone(module):
-    """The readers and assemblies import neither jax nor pflare_tpu, each
-    on its own."""
+    """The readers and assemblies, the row mesh's modules and the host
+    allocator tuning import neither jax nor pflare_tpu, each on its
+    own."""
     code = (
         "import json, importlib, sys\n"
         f"importlib.import_module('pflare_tpu_torch.{module}')\n"
@@ -90,6 +95,36 @@ def test_root_exports_cover_the_reference():
     assert pflare_tpu_torch.ELL.__module__ == "pflare_tpu_torch.sparse.ell"
     assert pflare_tpu_torch.build_inverse.__module__ == \
         "pflare_tpu_torch.inverse.build"
+
+
+def test_parallel_exports_cover_the_reference():
+    """``pflare_tpu_torch.parallel`` exports the reference's 16 names
+    (pflare_tpu/parallel/__init__.py), each an object of the port, and
+    PCAIR's setup and solve_device take a mesh."""
+    import inspect
+
+    import pflare_tpu.parallel as jpar
+    import pflare_tpu_torch.parallel as tpar
+
+    assert len(jpar.__all__) == 16
+    assert set(jpar.__all__) <= set(tpar.__all__)
+    for name in jpar.__all__:
+        obj = getattr(tpar, name)
+        assert getattr(obj, "__module__", "pflare_tpu_torch").startswith(
+            "pflare_tpu_torch"), name
+    assert tpar.ROW_AXIS == jpar.ROW_AXIS
+    for method in (pflare_tpu_torch.PCAIR.setup,
+                   pflare_tpu_torch.PCAIR.solve_device):
+        assert "mesh" in inspect.signature(method).parameters
+
+
+def test_tune_host_malloc_is_idempotent():
+    """``tune_host_malloc`` returns a bool, and the same one again."""
+    from pflare_tpu_torch.utils.hostmem import tune_host_malloc
+
+    first = tune_host_malloc()
+    assert isinstance(first, bool)
+    assert tune_host_malloc() is first
 
 
 def test_compiled_sources_lie_inside_the_port():

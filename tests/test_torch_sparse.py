@@ -320,3 +320,31 @@ def test_banded_kernel_emulation_matches_plain(case):
     M = BandedSpMV.from_scipy(A, dtype=torch.float64)
     xt = torch.from_numpy(x)
     assert torch.equal(_emulate_banded_kernel(M, xt), M.matvec(xt))
+
+
+def test_segment_sum_equals_index_add_on_plan_triples():
+    """The device re-setup's segment sum, over a product plan's triples
+    sorted as ``device_tables`` sorts them, equals the CPU's
+    ``index_add_`` over the triples in plan order bit for bit, and so
+    does the plan's execution."""
+    from pflare_tpu_torch.sparse.pattern import SparsityPattern
+    from pflare_tpu_torch.sparse.spgemm import build_spgemm_plan, segment_sum
+
+    rng = np.random.default_rng(11)
+    A = sp.csr_matrix(adv_diff_2d(24))
+    A.data = A.data * 10.0 ** rng.integers(-6, 6, A.nnz)
+    B = sp.csr_matrix(A @ A.T)
+    C = sp.csr_matrix(A @ B)
+    for M in (B, C):
+        M.sort_indices()
+    plan = build_spgemm_plan(*(SparsityPattern(M.indptr, M.indices,
+                                               M.shape) for M in (A, B, C)))
+    a, b = torch.as_tensor(A.data), torch.as_tensor(B.data)
+    prod = a[plan.a_pos] * b[plan.b_pos]
+    want = torch.zeros(C.nnz, dtype=torch.float64).index_add_(
+        0, torch.as_tensor(plan.out_pos.astype(np.int64)), prod)
+    tables = plan.device_tables("cpu")
+    got = segment_sum(a[tables["a_pos"]] * b[tables["b_pos"]],
+                      tables["lengths"])
+    assert torch.equal(got, want)
+    assert torch.equal(plan.execute(a, b), want)
