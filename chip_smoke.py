@@ -180,7 +180,17 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     14 (a)'s FV hierarchy on 4 shards: the top a ``HaloELL`` on the
     banded kernel, neighbour-only exchanges on the top and the
     repartitioned levels, x within 1e-5 of the serial solve's, the true
-    residual <= 1e-4.
+    residual <= 1e-4;
+16. the example and notebook twins (examples/torch/, notebooks/torch/),
+    each loaded in this process and run on the card with the launch
+    counters at 0 before it (``PHASE16_EXAMPLES``, ``PHASE16_NOTEBOOKS``):
+    ex_airg_advection at 1024^2 (f64, right GMRES to rtol 1e-10, the true
+    residual by scipy <= 1e-8) and ex_scaling at 256^2, 512^2 and 1024^2
+    (<= 6 right GMRES its at rtol 1e-10 each), both launching both
+    kernels, each kernel held once against its plain version on their
+    hierarchy's level-0 A and level-1 P; the other twins at their JAX
+    examples' own sizes; one line per twin with its seconds, iterations
+    and its example's own rule (``_twin_rule``).
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -313,6 +323,29 @@ def gmres_paths(pcx, b, **kw):
                      {"dia": tdia.KERNEL_LAUNCHES,
                       "banded": tbanded.KERNEL_LAUNCHES})
     return out
+
+
+def run_notebook(path, **params):
+    """Execute the code cells of a percent-format notebook (``# %%``
+    headers) in order in one namespace, with ``params`` assigned just
+    after its cell tagged "parameters" (papermill's convention); returns
+    the namespace."""
+    with open(path) as f:
+        lines = f.read().splitlines(keepends=True)
+    cells, header, body = [], None, []
+    for line in lines + ["# %%\n"]:
+        if line.startswith("# %%"):
+            if header is not None and "[markdown]" not in header:
+                cells.append((header, "".join(body)))
+            header, body = line, []
+        else:
+            body.append(line)
+    ns = {"__name__": "__notebook__", "__file__": os.path.abspath(path)}
+    for i, (header, src) in enumerate(cells):
+        exec(compile(src, f"{path} (cell {i})", "exec"), ns)
+        if 'tags=["parameters"]' in header:
+            ns.update(params)
+    return ns
 
 
 def band_matrix(np, sp, n, w, seed):
@@ -809,6 +842,11 @@ def main() -> int:
     del pc2k, A2k, fv
     print(f"# phase 15: {t_phase15:.3f} s")
 
+    # ~~~~~~~~~~ 16. the example and notebook twins ~~~~~~~~~~
+    twin_runs, t_phase16 = phase16(np, torch, tpf, tdia, tbanded, dev,
+                                   plain_matvec, err)
+    print(f"# phase 16: {t_phase16:.3f} s")
+
     # last, so that no phase's host timings or memory change with it
     from pflare_tpu_torch.utils.hostmem import tune_host_malloc
     print(f"# tune_host_malloc applied: {tune_host_malloc()} (glibc keeps "
@@ -856,6 +894,8 @@ def main() -> int:
                                  ("device_setup", setup_runs),
                                  ("unstructured", mesh_runs))},
             "mesh": row_mesh[kind],
+            "twins": {name: run["launches"][kind]
+                      for name, run in twin_runs.items()},
             "timings": timed[group]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2765,6 +2805,188 @@ def phase15(np, torch, tpf, tdia, tbanded, dev, A512, pc2k, A2k, b2k, fv,
     t_c = time.perf_counter() - t_c
     print(f"# phase 15 (a) {t_a:.3f} s, (b) {t_b:.3f} s, (c) {t_c:.3f} s")
     return out, time.perf_counter() - t_phase
+
+
+# ~~~~~~~~~~ phase 16: the example and notebook twins ~~~~~~~~~~
+
+# (twin, main's arguments) of phase 16: the main path at sizes users run
+# (ex_airg_advection at 1024^2, ex_scaling up to 1024^2), the others at
+# their JAX examples' own sizes
+PHASE16_EXAMPLES = (
+    ("ex_airg_advection", (1024,)),
+    ("ex_scaling", ((256, 512, 1024),)),
+    ("ex_cf_splitting", ()),
+    ("ex_complexities", ()),
+    ("ex_device_setup", (64,)),
+    ("ex_getcoeffs", ()),
+    ("ex_pflareinv_options", ()),
+    ("ex_reuse", ()),
+)
+PHASE16_MAIN_PATH = ("ex_airg_advection", "ex_scaling")
+PHASE16_NOTEBOOKS = ("01_intro_pcair", "02_polynomial_inverses",
+                     "03_cf_splittings", "04_parallel_mesh",
+                     "05_reuse_device_resetup", "06_meshes_and_fem")
+
+
+def _twin_rule(np, tpf, name, out):
+    """(passed, iterations, what was checked) of a twin's result against
+    its example's own rule."""
+    if name == "ex_airg_advection":
+        n = int(round(out["unknowns"] ** 0.5))
+        A = tpf.adv_diff_2d(n)
+        b = np.random.default_rng(0).standard_normal(A.shape[0])
+        true = float(np.linalg.norm(A @ out["x"] - b) / np.linalg.norm(b))
+        return (out["converged"] and true <= 1e-8, out["iterations"],
+                f"right GMRES rtol 1e-10 converged {out['converged']}, "
+                f"{out['levels']} levels, true residual {true:.3e} <= 1e-8")
+    if name == "ex_scaling":
+        rows = out["rows"]
+        return (all(r["converged"] and r["iterations"] <= 6 for r in rows),
+                [r["iterations"] for r in rows],
+                "<= 6 right GMRES its at rtol 1e-10 at every size: " + ", ".join(
+                    f"{r['n']}^2 {r['iterations']} its, setup "
+                    f"{r['setup_s']:.3f} s, solve {r['solve_s']:.4f} s"
+                    for r in rows))
+    if name == "ex_cf_splitting":
+        return (out["diag_dom_max_ratio"] < 0.5, None,
+                f"diag-dom submatrix {out['diag_dom_rows']} rows, max ratio "
+                f"{out['diag_dom_max_ratio']:.3f} < 0.5; splittings "
+                f"{out['splittings']}")
+    if name == "ex_complexities":
+        return (out["ci_grid_complexity"] < 3.0, None,
+                f"8^2 grid complexity {out['ci_grid_complexity']:.3f} < 3")
+    if name == "ex_device_setup":
+        h, hs = out["norms"], out["sharded_norms"]
+        same = bool(np.all(np.abs(hs - h) <= MESH_HISTORY_RTOL * h))
+        return (out["device_true_residual"] <= 1e-4 and same,
+                out["device_n_levels"],
+                f"device setup {out['device_setup_s']:.3f} s, true residual "
+                f"{out['device_true_residual']:.3e} <= 1e-4; sharded norms "
+                f"within {MESH_HISTORY_RTOL} of unsharded {same}, max abs "
+                f"diff {out['sharded_max_abs_diff']:.3e}, schedule "
+                f"{out['schedule']}")
+    if name == "ex_getcoeffs":
+        return (out["restored_identical"], None,
+                f"restored preconditioner identical (max abs diff "
+                f"{out['restore_max_abs_diff']:.3e}), level orders "
+                f"{out['level_orders']}")
+    if name == "ex_pflareinv_options":
+        return (all(c for c, _ in out.values()),
+                {f"{k[0]} {k[1]}": its for k, (_, its) in out.items()},
+                "every inverse type converges to rtol 1e-8 within 100 its")
+    if name == "ex_reuse":
+        return (out["reuse_setup_s"] < out["full_setup_s"]
+                and abs(out["iterations_reuse"] - out["iterations"]) <= 1,
+                (out["iterations"], out["iterations_reuse"]),
+                f"reuse setup {out['reuse_setup_s']:.4f} s < full "
+                f"{out['full_setup_s']:.4f} s, equal iterations (+-1)")
+    r = out["results"]
+    if name == "01_intro_pcair":
+        its = {n: v[0] for n, v in r["airg"].items()}
+        return (max(its.values()) <= 6, its,
+                "AIRG right GMRES <= 6 its at rtol 1e-10 at every size")
+    if name == "02_polynomial_inverses":
+        its = list(r["mf"].values()) + [r["assembled"][1]]
+        return (max(its) < 100, its, "every GMRES converges within 100 its")
+    if name == "03_cf_splittings":
+        its = {k: v[0] for k, v in r["solves"].items()}
+        return (max(its.values()) < 40 and r["diag_dom"][1] < 0.6, its,
+                "every splitting converges within 40 its; diag-dom max "
+                f"ratio {r['diag_dom'][1]:.3f} < 0.6")
+    if name == "04_parallel_mesh":
+        return (r["sharded_spmv_matches"] and r["tsqr_matches"]
+                and r["halo_max_err"] <= 1e-12
+                and math.isfinite(r["vcycle_norm"]), None,
+                f"sharded SpMV and TSQR match, halo error "
+                f"{r['halo_max_err']:.3e}, V-cycle norm "
+                f"{r['vcycle_norm']:.6f}, schedule {r['schedule']}")
+    if name == "05_reuse_device_resetup":
+        its = [r["host_resetup_iterations"]] + [s[1] for s in r["steps"]]
+        return (max(its) <= its[0] + 1, its,
+                "each device re-setup's solve within 1 it of the host "
+                "re-setup's")
+    if name == "06_meshes_and_fem":
+        its = {"dg1": r["dg1"][2], "annulus": r["annulus"][2],
+               "supg": r["supg"][False], "supg diag-scaled": r["supg"][True]}
+        return (its["dg1"] <= 4 and its["annulus"] <= 4
+                and its["supg diag-scaled"] <= its["supg"], its,
+                "DG(1) and annulus Richardson <= 4 its (the reference's "
+                "cap), diag scaling no worse")
+    raise KeyError(name)
+
+
+def phase16(np, torch, tpf, tdia, tbanded, dev, plain_matvec, err):
+    """The 8 example twins (examples/torch/) and the 6 notebook twins
+    (notebooks/torch/) on the card, in this process: each with the
+    launch counters at 0 before it, its output printed under "# |", its
+    seconds, iterations and its example's own rule (``_twin_rule``);
+    ex_airg_advection and ex_scaling must launch both kernels, each
+    held once against its plain version on their hierarchy's level-0 A
+    and level-1 P.  Returns ({twin: {"launches", "iterations"}}, seconds).
+    """
+    import contextlib
+    import importlib.util
+    import io
+
+    from pflare_tpu_torch.sparse import DIA, BandedSpMV
+
+    t_phase = time.perf_counter()
+    jobs = [(name, os.path.join(HERE, "examples", "torch", name + ".py"),
+             args) for name, args in PHASE16_EXAMPLES]
+    jobs += [(name, os.path.join(HERE, "notebooks", "torch", name + ".py"),
+              None) for name in PHASE16_NOTEBOOKS]
+    runs = {}
+    for name, path, args in jobs:
+        tdia.KERNEL_LAUNCHES = 0
+        tbanded.KERNEL_LAUNCHES = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if args is None:
+                out = run_notebook(path, device=str(dev))
+            else:
+                spec = importlib.util.spec_from_file_location(
+                    "_twin_" + name, path)
+                module = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(module)
+                out = module.main(*args, device=str(dev))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"dia": tdia.KERNEL_LAUNCHES,
+                    "banded": tbanded.KERNEL_LAUNCHES}
+        for line in buf.getvalue().splitlines():
+            print(f"# | {line}")
+        ok, its, note = _twin_rule(np, tpf, name, out)
+        print(f"# phase 16 {name}: {seconds:.3f} s, iterations {its}, "
+              f"launches {launches}, {'pass' if ok else 'FAIL'}: {note}",
+              flush=True)
+        require(ok, f"phase 16 {name}: its example's rule failed: {note}")
+        runs[name] = {"launches": launches, "iterations": its,
+                      "seconds": seconds}
+        if name not in PHASE16_MAIN_PATH:
+            continue
+        require(launches["dia"] > 0 and launches["banded"] > 0,
+                f"phase 16 {name}: a kernel of the main path was not "
+                f"launched: {launches}")
+        dh = out["pc"].upload()
+        for label, op, cls, group in (
+                ("level-0 A", dh.top, DIA, "aligned"),
+                ("level-1 P", dh.levels[1]["P"], BandedSpMV, "banded")):
+            require(isinstance(op, cls), f"phase 16 {name}: the {label} is "
+                    f"a {type(op).__name__}, not a {cls.__name__}")
+            x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+                op.shape[1]), dtype=op.dtype, device=dev)
+            y, ref = op.matvec(x), plain_matvec(op, x)
+            torch.cuda.synchronize()
+            rel = float((y - ref).norm() / ref.norm())
+            tol = TOL[str(op.dtype).split(".")[-1]]
+            require(rel <= tol, f"phase 16 {name} {label}: kernel vs plain "
+                    f"relative error {rel:.3e} > {tol}")
+            err[group] = max(err[group], float((y - ref).abs().max()))
+            print(f"# phase 16 {name}: {label} {cls.__name__} {op.shape} "
+                  f"{op.dtype}, kernel vs plain rel err {rel:.3e}")
+        del out, dh
+    return runs, time.perf_counter() - t_phase
 
 
 def _timed_solve(pcx, b, kw):

@@ -54,6 +54,9 @@ _SIGNATURES = (
     ("plan_execute", None, "pppppndpn", ("", "_i32")),
     ("gather_fill", None, "ppndp", ("", "_i32")),
     ("spgemm_onto_pattern", None, "ppppppppnnip", _ALL),
+    ("spgemm_count", None, "ppppnnp", ("",)),
+    ("spgemm_fill", None, "ppppppnnppp", ("",)),
+    ("csr_to_ell", ctypes.c_int, "ppnnpp", ("", "_i32")),
 )
 _CTYPES = {"p": ctypes.c_void_p, "n": ctypes.c_int64, "d": ctypes.c_double,
            "i": ctypes.c_int}
@@ -490,3 +493,48 @@ def spgemm_onto_pattern_native(A, B, P, lump: bool):
                         shape=(A.shape[0], B.shape[1]))
     res.has_sorted_indices = True
     return res
+
+
+def spgemm_native(A, B):
+    """C = A @ B of two scipy matrices by the native row-wise product
+    (int64 indices, float64 values, each row's columns sorted); None
+    when native is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    A, B = sp.csr_matrix(A), sp.csr_matrix(B)
+    a = [_c(A.indptr, np.int64), _c(A.indices, np.int64),
+         _c(A.data, np.float64)]
+    b = [_c(B.indptr, np.int64), _c(B.indices, np.int64),
+         _c(B.data, np.float64)]
+    n_rows, n_cols = A.shape[0], B.shape[1]
+    c_indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    lib.spgemm_count(_p(a[0]), _p(a[1]), _p(b[0]), _p(b[1]), n_rows, n_cols,
+                     _p(c_indptr))
+    c_indices = np.empty(int(c_indptr[-1]), dtype=np.int64)
+    c_data = np.empty(int(c_indptr[-1]), dtype=np.float64)
+    lib.spgemm_fill(*map(_p, a), *map(_p, b), n_rows, n_cols, _p(c_indptr),
+                    _p(c_indices), _p(c_data))
+    C = sp.csr_matrix((c_data, c_indices, c_indptr), shape=(n_rows, n_cols))
+    C.has_sorted_indices = True
+    return C
+
+
+def csr_to_ell_native(indptr, indices, n_rows: int, K: int):
+    """The padded-ELL layout of a sorted CSR pattern in one native pass:
+    (ell_cols [n_rows, K] int32, slot_of_pos [nnz] int64), as
+    ``SparsityPattern`` lays it out (padded slots hold column 0), or None
+    when native is unavailable.  Raises ``ValueError`` when a row holds
+    more than K entries."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    idt, _, suffix = _dispatch((indptr, indices))
+    indptr, indices = _c(indptr, idt), _c(indices, idt)
+    ell_cols = np.empty((int(n_rows), int(K)), dtype=np.int32)
+    slot_of_pos = np.empty(int(indptr[-1]), dtype=np.int64)
+    if getattr(lib, "csr_to_ell" + suffix)(
+            _p(indptr), _p(indices), int(n_rows), int(K), _p(ell_cols),
+            _p(slot_of_pos)):
+        raise ValueError(f"csr_to_ell: a row exceeds the padded width K={K}")
+    return ell_cols, slot_of_pos

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import cuda
-from .dtypes import numpy_dtype
+from .dtypes import numpy_dtype, torch_dtype
 
 MAX_OFFSETS = 16     # the kernel takes its offsets by value
 KERNEL_LAUNCHES = 0  # launches of csrc/dia_spmv.cu since the last reset
@@ -133,6 +133,13 @@ class DIA:
 
     def to(self, device) -> "DIA":
         return DIA(self.offsets, self.data.to(device), self.shape,
+                   self.col_base)
+
+    def astype(self, dtype) -> "DIA":
+        """The same matrix in ``dtype`` (torch, or numpy float32/64)."""
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch_dtype(dtype)
+        return DIA(self.offsets, self.data.to(dtype), self.shape,
                    self.col_base)
 
     def matvec(self, x):

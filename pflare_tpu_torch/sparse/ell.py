@@ -17,6 +17,7 @@ import torch
 
 from .pattern import SparsityPattern
 from .dtypes import numpy_dtype
+from .spgemm import segment_sum
 
 
 class ELL:
@@ -52,6 +53,26 @@ class ELL:
         data = torch.from_numpy(flat.reshape(pattern.shape[0], pattern.K))
         return ELL(pattern, data, torch.from_numpy(pattern.ell_cols))
 
+    @staticmethod
+    def from_flat(pattern: SparsityPattern, flat_csr_data) -> "ELL":
+        """From values in CSR entry order ``[nnz]`` (a tensor), on their
+        device."""
+        n, K = pattern.shape[0], pattern.K
+        dev = flat_csr_data.device
+        dense = flat_csr_data.new_zeros(n * K)
+        dense[torch.as_tensor(pattern.slot_of_pos, device=dev)] = \
+            flat_csr_data
+        return ELL(pattern, dense.reshape(n, K),
+                   torch.as_tensor(pattern.ell_cols, device=dev))
+
+    def flat_values(self):
+        """The values in CSR entry order ``[nnz]``."""
+        return self.data.reshape(-1)[torch.as_tensor(
+            self.pattern.slot_of_pos, device=self.data.device)]
+
+    def with_data(self, data) -> "ELL":
+        return ELL(self.pattern, data, self.cols)
+
     def to(self, device) -> "ELL":
         return ELL(self.pattern, self.data.to(device), self.cols.to(device))
 
@@ -67,6 +88,27 @@ class ELL:
         n, K = self.data.shape
         gathered = x.index_select(0, self.cols.reshape(-1)).reshape(n, K)
         return (self.data * gathered).sum(dim=1)
+
+    def matvec_t(self, x):
+        """y = A.T @ x: each column's terms summed in row order
+        (``segment_sum``), so a card gives the CPU's bits; an
+        ``index_add_`` there would add them atomically, in no fixed
+        order."""
+        pat = self.pattern
+        by_col = np.argsort(pat.indices, kind="stable")
+        slots = torch.as_tensor(pat.slot_of_pos[by_col], device=x.device)
+        terms = (self.data.reshape(-1)[slots]
+                 * x.index_select(0, torch.div(slots, pat.K,
+                                               rounding_mode="floor")))
+        return segment_sum(terms, torch.as_tensor(
+            np.bincount(pat.indices, minlength=pat.shape[1]),
+            device=x.device))
+
+    def diagonal(self):
+        """The diagonal, 0 where absent."""
+        rows = torch.arange(self.shape[0], device=self.cols.device)
+        return torch.where(self.cols == rows[:, None], self.data,
+                           0).sum(dim=1)
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -115,6 +157,33 @@ class TELL:
         return TELL(pattern, torch.from_numpy(flat.reshape(K, n)),
                     torch.from_numpy(cols.reshape(K, n)))
 
+    @staticmethod
+    def from_flat(pattern: SparsityPattern, flat_csr_data) -> "TELL":
+        """From values in CSR entry order ``[nnz]`` (a tensor), on their
+        device."""
+        n, K = pattern.shape[0], pattern.K
+        dev = flat_csr_data.device
+        slot_t = TELL._slot_t(pattern)
+        dense = flat_csr_data.new_zeros(K * n)
+        dense[torch.as_tensor(slot_t, device=dev)] = flat_csr_data
+        cols = np.zeros(K * n, dtype=np.int32)
+        cols[slot_t] = pattern.indices.astype(np.int32)
+        return TELL(pattern, dense.reshape(K, n),
+                    torch.as_tensor(cols.reshape(K, n), device=dev))
+
+    def flat_values(self):
+        """The values in CSR entry order ``[nnz]``."""
+        return self.data.reshape(-1)[torch.as_tensor(
+            TELL._slot_t(self.pattern), device=self.data.device)]
+
+    def with_data(self, data) -> "TELL":
+        return TELL(self.pattern, data, self.cols)
+
+    def to_ell(self) -> ELL:
+        """The ``[n, K]`` layout of the same matrix."""
+        return ELL(self.pattern, self.data.T.contiguous(),
+                   self.cols.T.contiguous())
+
     def to(self, device) -> "TELL":
         return TELL(self.pattern, self.data.to(device), self.cols.to(device))
 
@@ -133,5 +202,15 @@ class TELL:
             y = term if y is None else y + term
         return y
 
+    def diagonal(self):
+        """The diagonal, 0 where absent."""
+        rows = torch.arange(self.shape[0], device=self.cols.device)
+        return torch.where(self.cols == rows, self.data, 0).sum(dim=0)
+
     def __matmul__(self, x):
         return self.matvec(x)
+
+
+def spmv(A, x):
+    """y = A @ x for any of the port's sparse containers."""
+    return A.matvec(x)

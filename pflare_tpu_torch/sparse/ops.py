@@ -171,6 +171,17 @@ def _diag_positions(P: sp.csr_matrix) -> np.ndarray:
     return out
 
 
+def duplicate_plus_diag(A) -> sp.csr_matrix:
+    """A copy of A that holds every diagonal entry, zero where A had none
+    (reference: src/PETSc_Helper.F90:834)."""
+    A = _canon(A)
+    n = min(A.shape)
+    d = sp.csr_matrix(
+        (np.zeros(n, dtype=A.data.dtype), (np.arange(n), np.arange(n))),
+        shape=A.shape)
+    return _canon(A + d)
+
+
 def identity_csr(n: int, value: float = 1.0) -> sp.csr_matrix:
     return sp.csr_matrix(
         (np.full(n, value), (np.arange(n), np.arange(n))), shape=(n, n))

@@ -48,6 +48,12 @@ class SparsityPattern:
             self._ell = (ell_cols, rows * self.K + offs)
         return self._ell
 
+    @staticmethod
+    def from_scipy(mat) -> "SparsityPattern":
+        csr = sp.csr_matrix(mat)
+        csr.sort_indices()
+        return SparsityPattern(csr.indptr, csr.indices, csr.shape)
+
     @property
     def ell_cols(self) -> np.ndarray:
         return self._ell_layout()[0]
@@ -67,9 +73,13 @@ class SparsityPattern:
             (np.ones(self.nnz, dtype=bool), self.indices, self.indptr),
             shape=self.shape)
 
+    def keys(self) -> np.ndarray:
+        """The sorted entry keys row * n_cols + col."""
+        return self.row_of_pos() * np.int64(self.shape[1]) + self.indices
+
     def find(self, rows, cols) -> np.ndarray:
         """CSR positions of the (rows, cols) entries; -1 where absent."""
-        keys = self.row_of_pos() * np.int64(self.shape[1]) + self.indices
+        keys = self.keys()
         q = (np.asarray(rows, dtype=np.int64) * np.int64(self.shape[1])
              + np.asarray(cols, dtype=np.int64))
         if self.nnz == 0:

@@ -258,3 +258,9 @@ def poly_execute(tables: dict, a_flat, coefficients):
         power = plan_execute(tables["step"], power, a_flat)
         acc = acc + coefficients[k] * power
     return torch.where(tables["diag"], acc + coefficients[0], acc)
+
+
+def scipy_matmat(A, B) -> sp.csr_matrix:
+    """The plain host numeric SpGEMM, rows sorted (the first-time setup
+    path)."""
+    return _csr64(_csr64(A) @ _csr64(B))

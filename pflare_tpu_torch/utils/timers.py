@@ -2,7 +2,8 @@
 
 Reference: src/Timers.F90 -- cumulative timers keyed by setup phase
 (air_setup, air_coarsen, air_extract, air_inverse, air_prolong,
-air_restrict, air_rap), read with ``get_timers``.  A same-pattern
+air_restrict, air_rap), read with ``get_timers`` and ``timer_time``,
+with the number of timed regions of each in ``_COUNTS``.  A same-pattern
 re-setup by stored plans (air/host_resetup.py) splits its levels'
 time into resetup_gather, resetup_coeffs, resetup_inverse and
 resetup_products.
@@ -16,6 +17,7 @@ from contextlib import contextmanager
 import torch
 
 _TIMERS: dict[str, float] = {}
+_COUNTS: dict[str, int] = {}
 
 # the reference's printed timer names (src/Timers.F90:31-70), so output
 # parsers carry over
@@ -46,10 +48,17 @@ def timer(name: str):
         yield
     finally:
         _TIMERS[name] = _TIMERS.get(name, 0.0) + time.perf_counter() - t0
+        _COUNTS[name] = _COUNTS.get(name, 0) + 1
+
+
+def timer_time(name: str) -> float:
+    """The seconds timed under ``name`` so far (0 if none)."""
+    return _TIMERS.get(name, 0.0)
 
 
 def reset_timers():
     _TIMERS.clear()
+    _COUNTS.clear()
 
 
 def get_timers() -> dict:

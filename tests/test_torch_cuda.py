@@ -536,3 +536,26 @@ def test_segment_sum_card_equals_cpu():
     a = torch.as_tensor(A.data)
     assert torch.equal(plan.execute(a.to(dev), a.to(dev)).cpu(),
                        plan.execute(a, a))
+
+
+def test_ell_transpose_and_flat_values_card_equal_cpu():
+    """ELL's transpose product (summed in row order) and diagonal, and
+    the ELL/TELL ``from_flat``/``flat_values`` round trip, give the
+    CPU's bits on the card."""
+    from pflare_tpu_torch.sparse import ELL, TELL
+
+    dev = _card()
+    rng = np.random.default_rng(11)
+    A = sp.csr_matrix(sp.random(3000, 2500, density=0.004, random_state=5))
+    A.data = A.data * 10.0 ** rng.integers(-6, 6, A.nnz)
+    x = torch.as_tensor(rng.standard_normal(A.shape[0]))
+    E = ELL.from_scipy(A)
+    Ed = E.to(dev)
+    assert torch.equal(Ed.matvec_t(x.to(dev)).cpu(), E.matvec_t(x))
+    assert torch.equal(Ed.diagonal().cpu(), E.diagonal())
+    flat = torch.as_tensor(A.data, device=dev)
+    for cls in (ELL, TELL):
+        M = cls.from_flat(E.pattern, flat)
+        assert M.data.device == flat.device
+        assert torch.equal(M.flat_values(), flat)
+        assert torch.equal(M.data.cpu(), cls.from_scipy(A).data)

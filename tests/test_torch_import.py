@@ -118,6 +118,163 @@ def test_parallel_exports_cover_the_reference():
         assert "mesh" in inspect.signature(method).parameters
 
 
+# what the port's design puts in place of a public name of the reference
+# (each checked to exist in the port): level-dict smoothers by the
+# full-space ones, the per-level uploads by ``Hierarchy.to`` (which
+# returns a ``DeviceHierarchy``), ``HaloELL.from_ell`` by the sharded
+# container's ``from_op``, and the ELL-slot index arrays of a SpGEMM plan
+# by the CSR-value tables of ``device_tables``
+REPLACED_BY = {
+    "air.smooth.f_smooth": "air.smooth.f_smooth_full",
+    "air.smooth.c_smooth": "air.smooth.c_smooth_full",
+    "air.Hierarchy.device_levels": "air.Hierarchy.to",
+    "air.Hierarchy.device_dtype": "air.Hierarchy.to",
+    "air.LevelData.to_device": "air.Hierarchy.to",
+    "air.LevelData.device": "air.Hierarchy.to",
+    "parallel.HaloELL.from_ell": "parallel.HaloELL.from_op",
+    "sparse.SpGEMMPlan.a_slot": "sparse.SpGEMMPlan.device_tables",
+    "sparse.SpGEMMPlan.b_slot": "sparse.SpGEMMPlan.device_tables",
+    "sparse.SpGEMMPlan.out_pos": "sparse.SpGEMMPlan.device_tables",
+}
+# attributes an instance sets in __init__ (a property in the reference)
+INSTANCE_ATTRIBUTES = {"inverse.Inverse.mat", "parallel.HaloELL.dtype"}
+# ROADMAP's do-not-port list: ``DIA.make_fused`` has no call site
+NOT_PORTED = {"sparse.DIA.make_fused"}
+SUBPACKAGES = ["sparse", "inverse", "solvers", "air", "cf", "problems",
+               "parallel", "utils.timers"]
+
+
+def _resolve(dotted):
+    """The port's object at ``pflare_tpu_torch.<dotted>`` (a module path,
+    then attributes)."""
+    import importlib
+
+    parts = dotted.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(
+                "pflare_tpu_torch." + ".".join(parts[:i]))
+        except ModuleNotFoundError:
+            continue
+        for attr in parts[i:]:
+            obj = getattr(obj, attr)
+        return obj
+    raise ModuleNotFoundError(dotted)
+
+
+def _instance_attribute_holds(name):
+    """Build a small instance of the class and read the attribute."""
+    from pflare_tpu_torch.inverse import build_inverse
+    from pflare_tpu_torch.parallel import HaloELL, make_mesh
+
+    A = pflare_tpu_torch.adv_diff_2d(8)
+    if name == "inverse.Inverse.mat":
+        inv = build_inverse(A, pflare_tpu_torch.InverseType.ARNOLDI)
+        return inv.to("cpu", torch.float64).mat is not None
+    op = HaloELL.from_scipy(A, make_mesh(2, device="cpu"))
+    return op.dtype == torch.float64
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_cover_the_reference(sub):
+    """Every name the reference's sub-package exports (its ``__all__``, or
+    a module's public definitions) is an object of the port's, and so is
+    every public method of an exported class; or the port puts something
+    else in its place (``REPLACED_BY``, checked to exist), sets it on its
+    instances, or it is on ROADMAP's do-not-port list."""
+    import importlib
+    import inspect
+
+    ref = importlib.import_module("pflare_tpu." + sub)
+    port = importlib.import_module("pflare_tpu_torch." + sub)
+    names = getattr(ref, "__all__", None) or [
+        n for n, v in vars(ref).items() if not n.startswith("_")
+        and getattr(v, "__module__", None) == ref.__name__]
+    assert names
+    short = sub.split(".")[0]
+    missing = []
+    for name in names:
+        if not hasattr(port, name):
+            missing.append(f"{sub}.{name}")
+            continue
+        obj = getattr(port, name)
+        assert getattr(obj, "__module__", "pflare_tpu_torch").startswith(
+            "pflare_tpu_torch"), name
+        ref_obj = getattr(ref, name)
+        if not inspect.isclass(ref_obj):
+            continue
+        for attr in vars(ref_obj):
+            key = f"{short}.{name}.{attr}"
+            if (attr.startswith("_") or attr.startswith("tree_")
+                    or hasattr(obj, attr) or key in NOT_PORTED):
+                continue
+            if key in INSTANCE_ATTRIBUTES:
+                assert _instance_attribute_holds(key), key
+            elif key in REPLACED_BY:
+                _resolve(REPLACED_BY[key])
+            else:
+                missing.append(key)
+    assert missing == []
+
+
+def test_replaced_names_have_counterparts():
+    """Each name of ``REPLACED_BY`` is gone from the port and its
+    counterpart is there; the replaced module functions exist in the
+    reference."""
+    import pflare_tpu.air.smooth as jsmooth
+
+    for old, new in REPLACED_BY.items():
+        assert callable(_resolve(new)), new
+        *where, attr = old.split(".")
+        assert not hasattr(_resolve(".".join(where)), attr), old
+    assert callable(jsmooth.f_smooth) and callable(jsmooth.c_smooth)
+
+
+TWIN_DIRS = (os.path.join(REPO, "examples", "torch"),
+             os.path.join(REPO, "notebooks", "torch"))
+
+
+def _twin_files():
+    return sorted(os.path.join(d, f) for d in TWIN_DIRS
+                  for f in os.listdir(d) if f.endswith(".py"))
+
+
+def test_twins_leave_jax_out():
+    """Every example and notebook twin imports only the port, torch,
+    numpy, scipy and the standard library: no jax, no pflare_tpu (read
+    from each file's import statements), and importing the 8 examples in
+    a fresh interpreter loads neither."""
+    import ast
+
+    allowed = {"pflare_tpu_torch", "torch", "numpy", "scipy", "argparse",
+               "os", "sys", "time", "tempfile"}
+    files = _twin_files()
+    assert len(files) == 14
+    for path in files:
+        tree = ast.parse(open(path).read(), path)
+        tops = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                tops |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                tops.add(node.module.split(".")[0])
+        assert tops <= allowed, (path, tops - allowed)
+    code = (
+        "import importlib.util, json, os, sys\n"
+        f"d = {TWIN_DIRS[0]!r}\n"
+        "for f in sorted(os.listdir(d)):\n"
+        "    spec = importlib.util.spec_from_file_location(f[:-3], "
+        "os.path.join(d, f))\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pflare_tpu')]\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_tune_host_malloc_is_idempotent():
     """``tune_host_malloc`` returns a bool, and the same one again."""
     from pflare_tpu_torch.utils.hostmem import tune_host_malloc
@@ -137,6 +294,11 @@ def test_compiled_sources_lie_inside_the_port():
         path = os.path.realpath(path)
         assert os.path.commonpath([pkg, path]) == pkg, path
         assert os.path.exists(path), path
+    # the twins name no source or file of the JAX package
+    for path in _twin_files():
+        text = open(path).read()
+        assert "pflare_tpu/" not in text and ".cpp" not in text, path
+        assert ".cu" not in text.replace(".cuda", ""), path
 
 
 def test_generators_match_reference_bitwise():
