@@ -190,7 +190,37 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     kernels, each kernel held once against its plain version on their
     hierarchy's level-0 A and level-1 P; the other twins at their JAX
     examples' own sizes; one line per twin with its seconds, iterations
-    and its example's own rule (``_twin_rule``).
+    and its example's own rule (``_twin_rule``);
+17. the one-program solve (``PCAIR(jit=)``: CUDA graphs, and the TELL
+    kernel ``csrc/tell_spmv.cu``), run after phase 16 on phase 5's 512^2
+    and phase 7's 2048^2 f32 PCAIRs, kept until then: (a) ``jit=True``
+    against ``jit=False`` on each, every run warm and with the launch
+    counters at 0 before it: ``apply`` equal bit for bit (and a second
+    apply leaves the first's result as it was), ``solve_device`` (10
+    Richardson its, with and without x0) x and norms equal bit for bit
+    with equal launches, right GMRES to rtol 1e-5 through graphs equal
+    bit for bit to the same stationary GMRES run eagerly and in
+    iterations to ``jit=False``'s host-driven GMRES; the walls, the
+    profiled device busy and idle share of each, the launches an
+    iteration and the capture seconds; phase 6's f64 parity GMRES with
+    and without graphs within phase 6's history rule; (b) (run at the end
+    of phase 12 (b), on its PCAIR, ``install_replay``) an ``install`` of
+    new values drops the graphs, and the replayed solve then equals the
+    eager solve on the new operators bit for bit; (c) phase 15 (b)'s
+    4-shard ``solve_device`` through its graph against eager: x, norms,
+    launches and the mesh's exchange log equal; (d) the TELL kernel
+    against its plain version, bit for bit in f32 and f64, on every TELL
+    operator of the 512^2 and 2048^2 hierarchies, and ``measure`` on the
+    widest at each size; (e) a capture that reads the host raises.  In
+    (a)-(c) every captured program's graph is read back
+    (``graph_launches``): the kernel nodes of each of our kernels in it,
+    which each replay launches, must equal what a replay adds to the
+    launch counters.
+
+Every PCAIR here runs with ``jit=True``, the default: on the card its
+solves replay CUDA graphs, so every launch and exchange count of phases
+5-16 also checks that a replay counts what an eager run does.  Every
+graph is kept (``graphs.KEEP_GRAPHS``) so that phase 17 can read it.
 
 Kernel times are device times: ``R`` calls captured in one CUDA graph,
 replayed and timed by CUDA events (``graph_ms``).  The eager
@@ -215,6 +245,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DIA_SITES = {"aligned": "pflare_tpu/sparse/dia.py:311",
              "padded": "pflare_tpu/sparse/dia.py:367"}
 BANDED_SITE = "pflare_tpu/sparse/banded.py:238"
+# not a Pallas site: the slot loop the reference's jitted solve fuses
+TELL_SITE = "pflare_tpu/sparse/ell.py:217"
 TOL = {"float32": 1e-6, "float64": 1e-13}
 HISTORY_RTOL = 1e-8  # phase 9 (a): card against CPU residual histories
 R = 50               # calls captured in one CUDA graph
@@ -296,6 +328,50 @@ def graph_ms(torch, fns):
     return start.elapsed_time(end) / (R * REPLAYS)
 
 
+def profiled(torch, fn, label):
+    """``fn()`` once under torch.profiler, device activity alone (with the
+    host ops' events the profiled 2048^2 lAIR fcf solve took 85 s in all
+    on the H100's host, 3.4 s of it the solve), to completion: prints its
+    wall, device busy and idle share, each kernel's calls and device time
+    and the top device ops; returns ({kind: us a call or None}, "wall_s",
+    "busy_ms")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        device_sync_read(*(out if isinstance(out, tuple) else [
+            out if torch.is_tensor(out) else out.x]))
+        wall = time.perf_counter() - t0
+    found = {"dia": [0, 0.0], "banded": [0, 0.0], "tell": [0, 0.0]}
+    busy_us = 0.0
+    ops = []
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:  # kernels, copies, sets
+            busy_us += evt.self_device_time_total
+            ops.append((evt.self_device_time_total, evt.count, evt.key))
+        for kind in found:
+            if f"{kind}_spmv_kernel" in evt.key:
+                found[kind][0] += evt.count
+                found[kind][1] += evt.device_time_total
+    print(f"# {label} profiled: wall {wall:.4f} s, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / 1e6 / wall:.1%}; " + ", ".join(
+              f"{kind} kernel {c} calls, {t / 1e3:.3f} ms, "
+              f"{t / c if c else float('nan'):.2f} us a call"
+              for kind, (c, t) in found.items())
+          + "; top device ops: " + "; ".join(
+              f"{key[:60]} {t / 1e3:.3f} ms in {c}"
+              for t, c, key in sorted(ops, reverse=True)[:5]),
+          flush=True)
+    res = {kind: t / c if c else None for kind, (c, t) in found.items()}
+    res["wall_s"], res["busy_ms"] = wall, busy_us / 1e3
+    return res
+
+
 def gmres_paths(pcx, b, **kw):
     """Two ``pcx.solve`` by each GMRES path, the stationary default and
     the host-driven ``eager=True``, in the order stationary, eager, eager,
@@ -306,6 +382,7 @@ def gmres_paths(pcx, b, **kw):
     from pflare_tpu_torch.solvers import jitted, krylov
     from pflare_tpu_torch.sparse import banded as tbanded
     from pflare_tpu_torch.sparse import dia as tdia
+    from pflare_tpu_torch.sparse import ell as tell
     from pflare_tpu_torch.utils.timers import device_sync_read
 
     out, seconds = {}, {}
@@ -313,6 +390,7 @@ def gmres_paths(pcx, b, **kw):
     for path, is_eager, solver in (stationary, eager, eager, stationary):
         tdia.KERNEL_LAUNCHES = 0
         tbanded.KERNEL_LAUNCHES = 0
+        tell.KERNEL_LAUNCHES = 0
         reads = solver.HOST_READS
         t0 = time.perf_counter()
         res = pcx.solve(b, eager=is_eager, **kw)
@@ -321,7 +399,8 @@ def gmres_paths(pcx, b, **kw):
         out[path] = (res, " / ".join(f"{t:.4f}" for t in seconds[path]),
                      solver.HOST_READS - reads,
                      {"dia": tdia.KERNEL_LAUNCHES,
-                      "banded": tbanded.KERNEL_LAUNCHES})
+                      "banded": tbanded.KERNEL_LAUNCHES,
+                      "tell": tell.KERNEL_LAUNCHES})
     return out
 
 
@@ -376,6 +455,8 @@ def main() -> int:
     from pflare_tpu_torch.sparse import DIA, TELL, BandedSpMV
     from pflare_tpu_torch.sparse import banded as tbanded
     from pflare_tpu_torch.sparse import dia as tdia
+    from pflare_tpu_torch.sparse import ell as tell
+    from pflare_tpu_torch.utils import graphs
     from pflare_tpu_torch.utils.timers import (device_sync_read, get_timers,
                                                reset_timers)
 
@@ -395,6 +476,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    graphs.KEEP_GRAPHS = True   # phase 17 reads every captured graph
 
     # ~~~~~~~~~~ 2. build ~~~~~~~~~~
     t_cuda = cuda.build_all()
@@ -423,7 +505,7 @@ def main() -> int:
 
     # ~~~~~~~~~~ 4. kernels against their plain versions ~~~~~~~~~~
     rng = np.random.default_rng(0)
-    err = {"aligned": 0.0, "padded": 0.0, "banded": 0.0}
+    err = {"aligned": 0.0, "padded": 0.0, "banded": 0.0, "tell": 0.0}
 
     def check(op, group, label):
         """Kernel vs plain on one operator, in f32 and f64."""
@@ -482,6 +564,8 @@ def main() -> int:
         if isinstance(M, DIA):
             return tdia.dia_spmv_plain(M.data, M.offsets, x, *M.shape,
                                        M.col_base)
+        if isinstance(M, TELL):
+            return tell.tell_spmv_plain(M.data, M.cols, x)
         return tbanded.banded_spmv_plain(M.data, M.lcols, x, M.n, M.w, M.W,
                                          M.col_base)
 
@@ -490,6 +574,8 @@ def main() -> int:
         data = M.data.to(dtype or M.dtype, copy=True)
         if isinstance(M, DIA):
             return DIA(M.offsets, data, M.shape, M.col_base)
+        if isinstance(M, TELL):
+            return TELL(M.pattern, data, M.cols.clone())
         return BandedSpMV(data, M.lcols.clone(), M.n, M.n_cols, M.w, M.W,
                           M.col_base)
 
@@ -500,17 +586,18 @@ def main() -> int:
         calls take enough copies of the operator in turn to fill twice
         the L2, so the operator comes from device memory, as in a
         V-cycle, while x stays in L2, as it does there.  The bound is the
-        larger of bytes = stored slots * (sizeof T + index bytes, 4 for
-        banded, 0 for DIA) + (x entries read + n) * sizeof T over 3.35
-        TB/s and 2 FLOPs per nonzero over 67 TFLOP/s.  The x entries read
-        are those the offsets or the band cover, n + the offsets' spread
-        or n + 2w, at most n_cols (a shard block reads only that part of
-        its extended window)."""
+        larger of bytes = nonzeros * (sizeof T + index bytes, 4 for
+        banded and TELL, 0 for DIA) + (x entries read + n) * sizeof T over
+        3.35 TB/s and 2 FLOPs per nonzero over 67 TFLOP/s: what this
+        operator's product needs, not what its layout stores (padded
+        slots hold 0 and add nothing).  The x entries read are the
+        columns that hold a nonzero."""
         host = op.to_scipy()
         n, n_cols = op.shape
         T = op.data.element_size()
         banded = isinstance(op, BandedSpMV)
-        op_bytes = op.data.numel() * (T + (4 if banded else 0))
+        gather = isinstance(op, TELL)
+        op_bytes = op.data.numel() * (T + (4 if banded or gather else 0))
         copies = min(R, max(1, math.ceil(2 * L2_BYTES / op_bytes)))
         mats = [op] + [copy_op(op) for _ in range(copies - 1)]
         csrs = [torch.sparse_csr_tensor(
@@ -530,12 +617,14 @@ def main() -> int:
             # plain PyTorch TELL gather (one gather, multiply, add a slot)
             tells = [TELL.from_scipy(host, dtype=op.dtype).to(dev)
                      for _ in range(copies)]
-            tell_ms = graph_ms(torch, [lambda M=M: M.matvec(x)
-                                       for M in tells])
-        span = (max(op.offsets) - min(op.offsets) if not banded
-                else 2 * op.w)
-        t_bytes = (op_bytes + (n + min(n + span, n_cols)) * T) \
-            / HBM_BYTES_S * 1e3
+            tell_ms = graph_ms(torch, [
+                lambda M=M: tell.tell_spmv_plain(M.data, M.cols, x)
+                for M in tells])
+        index = 4 if banded or gather else 0
+        x_read = int(np.count_nonzero(np.bincount(host.indices,
+                                                  minlength=n_cols)))
+        t_bytes = ((host.nnz * (T + index) + (n + x_read) * T)
+                   / HBM_BYTES_S * 1e3)
         t_ops = 2 * host.nnz / FP32_FLOPS * 1e3
         row = {
             "shape": f"{label}: {n} x {n_cols}, K={op.data.shape[0]}"
@@ -571,42 +660,26 @@ def main() -> int:
         return found
 
     def profile_solve(pcx, bx, label, **kw):
-        """One more warm solve under torch.profiler (``kw`` to
-        ``solve_device``: a mesh): each kernel's calls and device time in
-        it, and the device's busy and idle shares.  Device activity alone:
-        the host ops' events are not read, and with them the profiled
-        2048^2 lAIR fcf solve took 85 s in all on the H100's host, 3.4 s of
-        it the solve."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            device_sync_read(*pcx.solve_device(bx, max_it=10,
-                                               ksp="richardson", **kw))
-            t_prof = time.perf_counter() - t0
-        found = {"dia": [0, 0.0], "banded": [0, 0.0]}
-        busy_us = 0.0
-        ops = []
-        for evt in prof.key_averages():
-            if evt.device_type == DeviceType.CUDA:  # kernels, copies, sets
-                busy_us += evt.self_device_time_total
-                ops.append((evt.self_device_time_total, evt.count, evt.key))
-            for kind in found:
-                if f"{kind}_spmv_kernel" in evt.key:
-                    found[kind][0] += evt.count
-                    found[kind][1] += evt.device_time_total
-        print(f"# {label} profiled solve: wall {t_prof:.4f} s, device busy "
-              f"{busy_us / 1e3:.3f} ms, idle share "
-              f"{1 - busy_us / 1e6 / t_prof:.1%}; " + ", ".join(
-                  f"{kind} kernel {c} calls, {t / 1e3:.3f} ms, "
-                  f"{t / c if c else float('nan'):.2f} us a call"
-                  for kind, (c, t) in found.items())
-              + "; top device ops: " + "; ".join(
-                  f"{key[:60]} {t / 1e3:.3f} ms in {c}"
-                  for t, c, key in sorted(ops, reverse=True)[:5]))
-        out = {kind: t / c if c else None for kind, (c, t) in found.items()}
-        out["wall_s"], out["busy_ms"] = t_prof, busy_us / 1e3
-        return out
+        """One more warm solve (10 Richardson its, ``kw`` to
+        ``solve_device``: a mesh) under torch.profiler, twice: with graphs
+        (the replay of the solve's CUDA graph, after one solve outside the
+        profiler, so that no capture is profiled) and eagerly
+        (``jit=False``).  Prints each kernel's calls and device time and
+        the device's busy and idle shares for both; returns the graph
+        run's ({kind: us a call}, "wall_s", "busy_ms") with the eager
+        run's under "eager"."""
+        def run():
+            return pcx.solve_device(bx, max_it=10, ksp="richardson", **kw)
+
+        device_sync_read(*run())
+        out = {}
+        for mode, jit in (("graphs", True), ("eager", False)):
+            pcx.jit = jit
+            try:
+                out[mode] = profiled(torch, run, f"{label} ({mode})")
+            finally:
+                pcx.jit = True
+        return {**out["graphs"], "eager": out["eager"]}
 
     def banded_targets(dhier):
         """The largest banded A_ff or A_fc, where one is banded (at 2048^2
@@ -640,15 +713,17 @@ def main() -> int:
     b = np.random.default_rng(1).standard_normal(A512.shape[0])
     tdia.KERNEL_LAUNCHES = 0
     tbanded.KERNEL_LAUNCHES = 0
+    tell.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     x, norms = pc.solve_device(b, max_it=10, ksp="richardson")
     device_sync_read(x, norms)
     t_solve = time.perf_counter() - t0
     norms = norms.cpu().numpy()
-    launches = {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+    launches = {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES,
+                "tell": tell.KERNEL_LAUNCHES}
     print(f"# 512^2 f32 solve_device: {t_solve:.4f} s to completion "
-          f"(first call), launches {launches}")
-    require(launches["dia"] > 0 and launches["banded"] > 0,
+          f"(first call: run, then captured), launches {launches}")
+    require(min(launches.values()) > 0,
             f"a kernel of the path was not launched: {launches}")
     its = _converged_at(np, norms, 1e-5)
     require(its is not None, f"512^2 Richardson did not reach rtol 1e-5 in "
@@ -717,6 +792,7 @@ def main() -> int:
     solve_s = []
     tdia.KERNEL_LAUNCHES = 0
     tbanded.KERNEL_LAUNCHES = 0
+    tell.KERNEL_LAUNCHES = 0
     for _ in range(2):
         t0 = time.perf_counter()
         x2k, n2k = pc2k.solve_device(b2k, max_it=10, ksp="richardson")
@@ -724,7 +800,8 @@ def main() -> int:
         solve_s.append(time.perf_counter() - t0)
         if len(solve_s) == 1:   # the counts of the first solve alone
             launches2k = {"dia": tdia.KERNEL_LAUNCHES,
-                          "banded": tbanded.KERNEL_LAUNCHES}
+                          "banded": tbanded.KERNEL_LAUNCHES,
+                          "tell": tell.KERNEL_LAUNCHES}
     n2k = n2k.cpu().numpy()
     its2k = _converged_at(np, n2k, 1e-5)
     true2k = float(np.linalg.norm(A2k @ x2k.double().cpu().numpy() - b2k)
@@ -736,7 +813,7 @@ def main() -> int:
           f"launches in the first solve {launches2k}")
     require(its2k is not None and true2k <= 1e-4,
             "2048^2 Richardson did not converge")
-    require(launches2k["dia"] > 0 and launches2k["banded"] > 0,
+    require(min(launches2k.values()) > 0,
             f"a kernel of the 2048^2 path was not launched: {launches2k}")
     host2k = {"setup": t_setup2k, "upload": t_upload2k,
               "n_levels": pc2k.n_levels,
@@ -819,8 +896,8 @@ def main() -> int:
     print(f"# phase 11: {t_phase11:.3f} s")
 
     # ~~~~~~~~~~ 12. device re-setup ~~~~~~~~~~
-    resetup_runs, t_phase12 = phase12(np, sp, torch, tpf, tdia, tbanded,
-                                      dev, A512, A1k, handoff)
+    resetup_runs, t_phase12, install_check = phase12(
+        np, sp, torch, tpf, tdia, tbanded, dev, A512, A1k, handoff)
     del handoff, A1k
     print(f"# phase 12: {t_phase12:.3f} s")
 
@@ -836,16 +913,25 @@ def main() -> int:
     print(f"# phase 14: {t_phase14:.3f} s")
 
     # ~~~~~~~~~~ 15. the row mesh ~~~~~~~~~~
-    row_mesh, t_phase15 = phase15(np, torch, tpf, tdia, tbanded, dev, A512,
-                                  pc2k, A2k, b2k, fv, measure, plain_matvec,
-                                  profile_solve, err)
-    del pc2k, A2k, fv
+    row_mesh, t_phase15, mesh4 = phase15(np, torch, tpf, tdia, tbanded, dev,
+                                         A512, pc2k, A2k, b2k, fv, measure,
+                                         plain_matvec, profile_solve, err)
+    del fv
     print(f"# phase 15: {t_phase15:.3f} s")
 
     # ~~~~~~~~~~ 16. the example and notebook twins ~~~~~~~~~~
     twin_runs, t_phase16 = phase16(np, torch, tpf, tdia, tbanded, dev,
                                    plain_matvec, err)
     print(f"# phase 16: {t_phase16:.3f} s")
+
+    # ~~~~~~~~~~ 17. the one-program solve ~~~~~~~~~~
+    one_program, t_phase17 = phase17(
+        np, torch, tdia, tbanded, tell, dev,
+        [("512^2", pc, b, A512), ("2048^2", pc2k, b2k, A2k)],
+        (pc64, A512), mesh4, install_check, measure, profile_solve,
+        plain_matvec, err, timed)
+    del pc2k, A2k, mesh4
+    print(f"# phase 17: {t_phase17:.3f} s")
 
     # last, so that no phase's host timings or memory change with it
     from pflare_tpu_torch.utils.hostmem import tune_host_malloc
@@ -897,6 +983,22 @@ def main() -> int:
             "twins": {name: run["launches"][kind]
                       for name, run in twin_runs.items()},
             "timings": timed[group]})
+    kernels.append({
+        "name": "tell_spmv", "route": "cuda",
+        "source": "pflare_tpu_torch/csrc/tell_spmv.cu",
+        "replaces": TELL_SITE, "launches": launches["tell"],
+        "launches_2048": launches2k["tell"],
+        "launches_per_iteration": launches2k["tell"] / 10,
+        "launches_per_iteration_512": launches["tell"] / 10,
+        "max_abs_err": err["tell"],
+        **{k: timed["tell"][0][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "solve_us_per_call_512": us_512["tell"],
+        "solve_us_per_call_2048": us_2048["tell"],
+        "launch_floor_ms": floor_ms,
+        "one_program": one_program,
+        "timings": timed["tell"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1608,8 +1710,9 @@ def max_rel_diff(np, got, want):
 
 def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, Abig, handoff):
     """The device re-setup (see the module docstring, phase 12).  Returns
-    the runs ({label: {"launches", "iterations"}}) and the phase's
-    seconds."""
+    the runs ({label: {"launches", "iterations"}}), the phase's seconds
+    and phase 17 (b)'s check (``install_replay``), which runs on (b)'s
+    PCAIR."""
     from pflare_tpu_torch.sparse import BandedSpMV
     from pflare_tpu_torch.utils.timers import count_syncs, device_sync_read
 
@@ -1771,6 +1874,7 @@ def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, Abig, handoff):
     require(launches["dia"] > 0 and launches["banded"] > 0,
             f"{side}^2 device re-setup: a kernel was not launched: {launches}")
     runs[f"{side} device re-setup"] = {"launches": launches, "iterations": 10}
+    install_check = install_replay(np, torch, pc, plan, Abig2, bbig, norms)
 
     # one warm install under the profiler, device activity alone
     from torch.autograd import DeviceType
@@ -1790,7 +1894,72 @@ def phase12(np, sp, torch, tpf, tdia, tbanded, dev, A512, Abig, handoff):
     print(f"# phase 12 (a) {t_a:.3f} s, (b) "
           f"{time.perf_counter() - t_phase - t_a:.3f} s")
     del pc, plan, x
-    return runs, time.perf_counter() - t_phase
+    return runs, time.perf_counter() - t_phase, install_check
+
+
+def graph_launches(pcx, label):
+    """Every captured program of ``pcx``: the kernel nodes of each of our
+    kernels in its graph (``Program.graph_kernels``, read from the kept
+    graph: what each replay launches) against what each replay adds to
+    the launch counters (``Program.counted``); they must be equal.
+    Returns the programs' nodes summed by kernel."""
+    total = {}
+    for key, prog in pcx._programs.items():
+        nodes, counted = prog.graph_kernels(), prog.counted()
+        require(nodes == counted, f"{label} program {key[:4]}: its graph "
+                f"launches {nodes}, a replay counts {counted}")
+        for kernel, c in nodes.items():
+            total[kernel] = total.get(kernel, 0) + c
+    require(len(pcx._programs) > 0, f"{label}: no program was captured")
+    print(f"# {label}: the graphs of {len(pcx._programs)} programs launch "
+          f"what their replays count: {total} kernel nodes", flush=True)
+    return total
+
+
+def install_replay(np, torch, pc, plan, A_old, b, norms_old):
+    """Phase 17 (b), run at the end of phase 12 (b) on its PCAIR: an
+    ``install`` of new values drops the CUDA graphs of the old operators
+    (the graph cache is empty after it); the first solve after it runs
+    eagerly and captures, the second replays, and the replay equals, bit
+    for bit, an eager solve (``jit=False``) on the new operators, whose
+    norms differ from the old operators' ``norms_old``; the replayed
+    graph launches what the counters count (``graph_launches``)."""
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    t0 = time.perf_counter()
+    A_new = perturbed(np, A_old, 12)
+    plan.install(pc, A_new)
+    require(len(pc._programs) == 0, "install left CUDA graphs of the old "
+            "operators in place")
+    pc.jit = True
+    pc.solve_device(b, max_it=10)
+    t1 = time.perf_counter()
+    x_g, n_g = pc.solve_device(b, max_it=10)
+    device_sync_read(x_g, n_g)
+    t_g = time.perf_counter() - t1
+    pc.jit = False
+    t1 = time.perf_counter()
+    x_e, n_e = pc.solve_device(b, max_it=10)
+    device_sync_read(x_e, n_e)
+    t_e = time.perf_counter() - t1
+    pc.jit = True
+    n_g, n_e = n_g.cpu().numpy(), n_e.cpu().numpy()
+    equal = bool(torch.equal(x_g, x_e)) and np.array_equal(n_g, n_e)
+    fresh = not np.array_equal(n_e, norms_old)
+    true = float(np.linalg.norm(A_new @ x_g.double().cpu().numpy() - b)
+                 / np.linalg.norm(b))
+    out = {"equal": equal, "fresh": fresh, "true_residual": true,
+           "replay_s": t_g, "eager_s": t_e,
+           "graph_kernel_nodes": graph_launches(pc, "phase 17 (b)"),
+           "seconds": time.perf_counter() - t0}
+    print(f"# phase 17 (b) install on new values: the replay equals the "
+          f"eager solve on the new operators bit for bit: {equal}; its "
+          f"norms differ from the old operators': {fresh}; true residual "
+          f"{true:.3e}; warm wall replay {t_g:.4f} s, eager {t_e:.4f} s")
+    require(equal and fresh, "phase 17 (b): the solve after install is not "
+            "the eager solve on the new operators")
+    require(true <= 1e-4, f"phase 17 (b): true residual {true:.3e}")
+    return out
 
 
 # (label, options, input) of phase 13's option sweep at 64^2, card against
@@ -2518,7 +2687,7 @@ def phase15(np, torch, tpf, tdia, tbanded, dev, A512, pc2k, A2k, b2k, fv,
     """The row mesh on the card (see the module docstring, phase 15).
     Returns {"dia", "banded"}: each kernel's launches an iteration of the
     sharded 2048^2 solve, its per-shard shapes and a shard block's timing;
-    and the phase's seconds."""
+    the phase's seconds; and (b)'s mesh, for phase 17."""
     from pflare_tpu_torch.air import operators as tops
     from pflare_tpu_torch.parallel import HaloELL, make_mesh
     from pflare_tpu_torch.parallel.mesh import agglomeration_schedule
@@ -2674,7 +2843,7 @@ def phase15(np, torch, tpf, tdia, tbanded, dev, A512, pc2k, A2k, b2k, fv,
 
     # (b) the main path sharded: phase 7's 2048^2 f32 hierarchy, 4 shards
     t_b = time.perf_counter()
-    mesh = make_mesh(PHASE15_SHARDS["solve"])
+    mesh = mesh_b = make_mesh(PHASE15_SHARDS["solve"])
     t0 = time.perf_counter()
     st = pc2k._distributed_state(mesh)
     torch.cuda.synchronize()
@@ -2804,7 +2973,7 @@ def phase15(np, torch, tpf, tdia, tbanded, dev, A512, pc2k, A2k, b2k, fv,
           f"exchanges {dict(mesh.traffic())}", flush=True)
     t_c = time.perf_counter() - t_c
     print(f"# phase 15 (a) {t_a:.3f} s, (b) {t_b:.3f} s, (c) {t_c:.3f} s")
-    return out, time.perf_counter() - t_phase
+    return out, time.perf_counter() - t_phase, mesh_b
 
 
 # ~~~~~~~~~~ phase 16: the example and notebook twins ~~~~~~~~~~
@@ -2987,6 +3156,272 @@ def phase16(np, torch, tpf, tdia, tbanded, dev, plain_matvec, err):
                   f"{op.dtype}, kernel vs plain rel err {rel:.3e}")
         del out, dh
     return runs, time.perf_counter() - t_phase
+
+
+# ~~~~~~~~~~ phase 17: the one-program solve ~~~~~~~~~~
+
+def _device_ops(dh):
+    """(label, container) of every operator of a device hierarchy, each
+    once: the top, the levels' operators, their inverses' and the coarse
+    inverse's (a matrix-free inverse runs on its level's operator)."""
+    seen, ops = set(), []
+
+    def add(label, op):
+        if id(op) not in seen:
+            seen.add(id(op))
+            ops.append((label, op))
+
+    add("top A", dh.top)
+    for i, lev in enumerate(dh.levels):
+        for key, val in lev.items():
+            if key.startswith("inv_"):
+                if val.kind not in ("diagonal", "dense"):
+                    add(f"level {i} {key}", val.mat)
+            elif key not in ("mask_f", "mask_c", "coarse"):
+                add(f"level {i} {key}", val)
+    if dh.coarse_inv.kind not in ("diagonal", "dense"):
+        add("coarse inverse", dh.coarse_inv.mat)
+    return ops
+
+
+def phase17(np, torch, tdia, tbanded, tell, dev, cases, parity, mesh,
+            install_check, measure, profile_solve, plain_matvec, err, timed):
+    """The one-program solve (see the module docstring, phase 17).
+    ``cases``: (label, PCAIR, b, A) of the 512^2 and 2048^2 f32 main
+    path; ``parity``: phase 6's f64 PCAIR and matrix; ``mesh``: phase 15
+    (b)'s.  Returns ({label: numbers}, seconds)."""
+    from pflare_tpu_torch.solvers.jitted import gmres_stationary
+    from pflare_tpu_torch.sparse import TELL
+    from pflare_tpu_torch.utils import graphs
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    t_phase = time.perf_counter()
+
+    def counts():
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES,
+                "tell": tell.KERNEL_LAUNCHES}
+
+    def run(pcx, jit, fn):
+        """``fn()`` with ``pcx.jit`` set and the counters at 0: (its
+        output, seconds to completion, launches)."""
+        pcx.jit = jit
+        tdia.KERNEL_LAUNCHES = tbanded.KERNEL_LAUNCHES = 0
+        tell.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        device_sync_read(*(out if isinstance(out, tuple)
+                           else [out if torch.is_tensor(out) else out.x]))
+        seconds = time.perf_counter() - t0
+        pcx.jit = True
+        return out, seconds, counts()
+
+    def same(a, b):
+        return all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+
+    out = {}
+    # (a) jit=True against jit=False on the main path, each warm
+    for label, pcx, bx, A in cases:
+        n = A.shape[0]
+        rng = np.random.default_rng(17)
+        r1, r2 = (torch.as_tensor(rng.standard_normal(n), dtype=pcx.dtype,
+                                  device=dev) for _ in range(2))
+        run(pcx, True, lambda: pcx.apply(r1))     # captures if not yet
+        y1, t_ag, l_ag = run(pcx, True, lambda: pcx.apply(r1))
+        keep = y1.clone()
+        y2, _, _ = run(pcx, True, lambda: pcx.apply(r2))
+        e1, t_ae, l_ae = run(pcx, False, lambda: pcx.apply(r1))
+        e2, _, _ = run(pcx, False, lambda: pcx.apply(r2))
+        require(same((y1, y2), (e1, e2)) and torch.equal(y1, keep)
+                and l_ag == l_ae, f"phase 17 {label}: apply through its "
+                "graph differs from the eager apply, aliases its last "
+                f"result or counts other launches ({l_ag} / {l_ae})")
+        sd = {True: [], False: []}
+        for jit in (True, False, False, True):
+            sd[jit].append(run(pcx, jit,
+                               lambda: pcx.solve_device(bx, max_it=10)))
+        (g, t_g1, l_g), (e, t_e1, l_e) = sd[True][0], sd[False][0]
+        require(same(g, e) and same(sd[True][1][0], e) and l_g == l_e,
+                f"phase 17 {label}: solve_device through its graph is not "
+                f"the eager solve bit for bit (launches {l_g} / {l_e})")
+        x0 = torch.as_tensor(rng.standard_normal(n), dtype=pcx.dtype,
+                             device=dev)
+        run(pcx, True, lambda: pcx.solve_device(bx, max_it=10, x0=x0))
+        g0, _, _ = run(pcx, True,
+                       lambda: pcx.solve_device(bx, max_it=10, x0=x0))
+        e0, _, _ = run(pcx, False,
+                       lambda: pcx.solve_device(bx, max_it=10, x0=x0))
+        require(same(g0, e0), f"phase 17 {label}: solve_device(x0=) "
+                "through its graph is not the eager solve bit for bit")
+        walls = {jit: min(r[1] for r in rs) for jit, rs in sd.items()}
+        sdp = profile_solve(pcx, bx, f"phase 17 {label} solve_device")
+        prof = {True: sdp, False: sdp["eager"]}
+        # right GMRES: the graphs against the same stationary GMRES run
+        # eagerly (bit for bit) and against jit=False's krylov.gmres
+        kw = dict(rtol=1e-5, side="right")
+        gm = {True: [], False: []}
+        for jit in (True, False, False, True):
+            gm[jit].append(run(pcx, jit, lambda: pcx.solve(bx, **kw)))
+        rg, re_ = gm[True][1][0], gm[False][1][0]
+        dh = pcx.upload()
+        bi = pcx._to_internal(pcx._vector(bx))
+        _, its_s, hist_s, _ = gmres_stationary(
+            dh.top.matvec, pcx._precond(dh), bi, None, 1e-5, 1e-50, 10000,
+            30, "right")
+        require(rg.converged and rg.iterations == its_s
+                and np.array_equal(rg.history, hist_s[:its_s + 1]),
+                f"phase 17 {label}: GMRES through graphs ({rg.iterations} "
+                f"its) is not the eager stationary GMRES ({its_s})")
+        require(rg.iterations == re_.iterations, f"phase 17 {label}: GMRES "
+                f"its {rg.iterations} with graphs, {re_.iterations} "
+                "with jit=False")
+        gap = float(np.max(np.abs(rg.history - re_.history) / re_.history))
+        captures = {f"{key[0]} {key[1]}": prog.capture_s
+                    for key, prog in pcx._programs.items()}
+        nodes = graph_launches(pcx, f"phase 17 {label}")
+        # the device busy and idle share of one warm apply and GMRES solve
+        extra = {}
+        for what, fn in (("apply", lambda: pcx.apply(r1)),
+                         ("gmres", lambda: pcx.solve(bx, **kw))):
+            for jit in (True, False):
+                pcx.jit = jit
+                try:
+                    extra[(what, jit)] = profiled(
+                        torch, fn, f"phase 17 {label} {what} "
+                        f"({'graphs' if jit else 'eager'})")
+                finally:
+                    pcx.jit = True
+        row = {
+            "apply_ms": {"graph": t_ag * 1e3, "eager": t_ae * 1e3},
+            "apply_launches": l_ag,
+            "solve_device_s": {"graph": walls[True], "eager": walls[False]},
+            "solve_device_launches_per_iteration": {
+                k: v / 10 for k, v in l_g.items()},
+            "profiled": {"graph": prof[True], "eager": prof[False]},
+            "profiled_apply": {"graph": extra[("apply", True)],
+                               "eager": extra[("apply", False)]},
+            "profiled_gmres": {"graph": extra[("gmres", True)],
+                               "eager": extra[("gmres", False)]},
+            "gmres": {"iterations": rg.iterations,
+                      "graph_s": min(r[1] for r in gm[True]),
+                      "eager_s": min(r[1] for r in gm[False]),
+                      "history_gap_to_jit_false": gap,
+                      "launches_per_iteration": {
+                          k: v / rg.iterations
+                          for k, v in gm[True][1][2].items()}},
+            "capture_s": captures,
+            "graph_kernel_nodes": nodes,
+        }
+        out[label] = row
+        print(f"# phase 17 {label} f32: apply graph {t_ag * 1e3:.3f} ms, "
+              f"eager {t_ae * 1e3:.3f} ms (equal bits, launches {l_ag}); "
+              f"solve_device 10 its graph {walls[True]:.4f} s, eager "
+              f"{walls[False]:.4f} s (equal bits, x0 given too; launches an "
+              f"iteration {row['solve_device_launches_per_iteration']}); "
+              f"profiled wall / busy / idle graph "
+              f"{prof[True]['wall_s']:.4f} s / {prof[True]['busy_ms']:.3f} "
+              f"ms / {1 - prof[True]['busy_ms'] / 1e3 / prof[True]['wall_s']:.1%}"
+              f", eager {prof[False]['wall_s']:.4f} s / "
+              f"{prof[False]['busy_ms']:.3f} ms / "
+              f"{1 - prof[False]['busy_ms'] / 1e3 / prof[False]['wall_s']:.1%}"
+              f"; right GMRES rtol 1e-5 {rg.iterations} its (eager "
+              f"stationary equal bit for bit, jit=False {re_.iterations} "
+              f"its, histories within {gap:.3e}), graph "
+              f"{row['gmres']['graph_s']:.4f} s, eager "
+              f"{row['gmres']['eager_s']:.4f} s; capture s {captures}",
+              flush=True)
+
+    # phase 6's f64 parity configuration: phase 6's history rule
+    pc64, A512 = parity
+    n = A512.shape[0]
+    kw = dict(x0=np.ones(n), rtol=1e-10, atol=1e-50, max_it=6, side="right")
+    rg, _, _ = run(pc64, True, lambda: pc64.solve(np.zeros(n), **kw))
+    re_, _, _ = run(pc64, False, lambda: pc64.solve(np.zeros(n), **kw))
+    h, he = rg.history, re_.history
+    require(rg.iterations == re_.iterations and len(h) == len(he)
+            and np.all(np.abs(h - he) <= HISTORY_RTOL * he
+                       + HISTORY_FLOOR * he[0]),
+            "phase 17: f64 parity GMRES with graphs against jit=False: "
+            f"{h} / {he}")
+    out["512^2 f64 parity gmres"] = {
+        "iterations": rg.iterations,
+        "history_gap": float(np.max(np.abs(h - he) / he))}
+    print(f"# phase 17 512^2 f64 parity right GMRES: {rg.iterations} its "
+          f"with graphs and with jit=False, histories within "
+          f"{out['512^2 f64 parity gmres']['history_gap']:.3e} of each norm")
+
+    # (b) the install check, made at the end of phase 12 (b)
+    out["install"] = install_check
+
+    # (c) phase 15 (b)'s 4-shard solve_device: its graph against eager
+    pcx, bx = cases[1][1], cases[1][2]
+    sharded = {}
+    for jit in (True, False, False, True):
+        mesh.reset_log()
+        res = run(pcx, jit, lambda: pcx.solve_device(bx, max_it=10,
+                                                     mesh=mesh))
+        sharded.setdefault(jit, []).append(
+            res + ({k: tuple(v) for k, v in mesh.log.items()},))
+    (g, _, l_g, log_g), (e, _, l_e, log_e) = sharded[True][0], \
+        sharded[False][0]
+    require(same(g, e) and same(sharded[True][1][0], e) and l_g == l_e
+            and log_g == log_e,
+            "phase 17 (c): the sharded solve through its graph is not the "
+            f"eager one (launches {l_g} / {l_e}, exchanges equal "
+            f"{log_g == log_e})")
+    graph_launches(pcx, "phase 17 (c)")
+    out["mesh"] = {"shards": mesh.size,
+                   "graph_s": min(r[1] for r in sharded[True]),
+                   "eager_s": min(r[1] for r in sharded[False]),
+                   "launches_per_iteration": {k: v / 10
+                                              for k, v in l_g.items()},
+                   "exchanges": sum(c for c, _ in log_g.values())}
+    print(f"# phase 17 (c) 2048^2 on {mesh.size} shards: graph equals eager "
+          f"bit for bit, launches {l_g}, {out['mesh']['exchanges']} "
+          f"exchanges logged in each; wall graph "
+          f"{out['mesh']['graph_s']:.4f} s, eager "
+          f"{out['mesh']['eager_s']:.4f} s", flush=True)
+
+    # (d) the TELL kernel against its plain version, bit for bit
+    tell_rows = []
+    for label, pcx, _, _ in cases:
+        tells = [(lab, op) for lab, op in _device_ops(pcx.upload())
+                 if isinstance(op, TELL)]
+        require(tells, f"phase 17 {label}: the hierarchy has no TELL")
+        rng = np.random.default_rng(5)
+        for lab, op in tells:
+            for dtype in (torch.float32, torch.float64):
+                M = TELL(op.pattern, op.data.to(dtype), op.cols)
+                x = torch.as_tensor(rng.standard_normal(op.shape[1]),
+                                    dtype=dtype, device=dev)
+                y, ref = M.matvec(x), plain_matvec(M, x)
+                torch.cuda.synchronize()
+                require(torch.equal(y, ref), f"phase 17 {label} {lab} "
+                        f"{dtype}: the TELL kernel differs from its plain "
+                        f"version by {float((y - ref).abs().max()):.3e}")
+                err["tell"] = max(err["tell"], float((y - ref).abs().max()))
+        print(f"# phase 17 {label}: TELL kernel equals its plain version "
+              f"bit for bit in f32 and f64 on {len(tells)} operators: "
+              + ", ".join(f"{lab} {op.shape[0]} rows K={op.data.shape[0]}"
+                          for lab, op in tells), flush=True)
+        lab, op = max(tells, key=lambda lo: lo[1].data.numel())
+        tell_rows.insert(0, measure(f"{label} {lab}", op))
+    timed["tell"] = tell_rows
+
+    # (e) a capture that fails raises, with no eager fallback
+    prog = graphs.Programs(dev).get(None, ("sync",),
+                                    lambda v: v * float(v.sum()))
+    try:
+        prog(torch.ones(4, device=dev))
+        raised = False
+    except RuntimeError as exc:
+        raised = "capture" in str(exc)
+    torch.cuda.synchronize()
+    require(raised, "phase 17 (e): a capture with a host read did not raise")
+    require(float((torch.ones(4, device=dev) * 2).sum()) == 8.0,
+            "phase 17 (e): the card is not usable after a failed capture")
+    print("# phase 17 (e) a capture with a host read raised; the card "
+          "works after it")
+    return out, time.perf_counter() - t_phase
 
 
 def _timed_solve(pcx, b, kw):

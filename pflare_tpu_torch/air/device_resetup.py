@@ -1143,8 +1143,11 @@ class DeviceResetup:
         ``build_device_resetup()`` and installs the same matrix.  For an
         auto-truncated hierarchy the truncation level stays fixed; a
         probe quality above ``auto_truncate_tol`` on the new values is
-        reported on stderr (a new truncation needs a full ``setup``)."""
+        reported on stderr (a new truncation needs a full ``setup``).
+        ``pc``'s CUDA graphs read the old operators, so they are dropped:
+        the next solve captures anew."""
         pc._device_hierarchy = self(A_new)
+        pc.drop_graphs()
         tol = self.hierarchy.options.auto_truncate_tol
         if self.probe_quality is not None and self.probe_quality > tol:
             print(f"# device re-setup: truncation probe "

@@ -13,6 +13,9 @@ preconditioner (reference: src/PCAIR_Interfaces.F90:1821-1882).  Under
 bandwidth-reducing order and every vector comes back in the caller's.
 With a row mesh (parallel/mesh.py) ``setup(A, mesh=)`` runs the
 distributed setup and ``solve_device(b, mesh=)`` the sharded solve.
+``jit=True`` (the default, as in the reference) runs the solve's device
+programs, each captured once into a CUDA graph and replayed
+(utils/graphs.py), where the reference runs jitted XLA programs.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..options import AIROptions
 from ..solvers.jitted import (gmres_right_fixed, gmres_stationary,
                               richardson_fixed)
 from ..solvers.krylov import SolveResult, fgmres, gmres, richardson
+from ..utils import graphs
 from ..utils.timers import print_timers, timer
 from .hierarchy import DeviceHierarchy, Hierarchy, setup_hierarchy
 from .smooth import _pad_to, vcycle_full, vcycle_kaskade
@@ -47,22 +51,39 @@ class PCAIR:
 
     ``dtype`` and ``device`` are those of the solve; the host setup runs
     in the precision of ``A``.
+
+    ``jit`` (the reference's argument, pflare_tpu/air/pcair.py:83-92): on
+    a CUDA device ``jit=True`` captures each of the solve's device
+    programs into a CUDA graph at its first call and replays it after:
+    ``apply``'s V-cycle (one graph per input length), the whole of
+    ``solve_device`` (one per ``max_it``, solver, x0 given or not, and
+    mesh) and, in ``solve``'s default GMRES, the preconditioned operator
+    and the residual (one replay each an Arnoldi step; the step's one
+    host read stays).  ``jit=False`` runs the cycle eagerly and ``solve``'s
+    GMRES on the host-driven ``krylov.gmres``, as the reference does
+    (:357-362).  On the CPU there is no graph: ``jit=True`` runs the same
+    eager code.  The graphs belong to the device form they read: a new
+    one (``setup``, ``setup_device``, a device re-setup's ``install``)
+    or none (``reset``) drops them, and the next call captures anew.
     """
 
-    def __init__(self, options: AIROptions | None = None,
+    def __init__(self, options: AIROptions | None = None, jit: bool = True,
                  dtype=torch.float32, device="cuda", **kw):
         opts = options or AIROptions()
         if kw:
             opts = opts.replace(**kw)
         self.options = _checked(opts)
+        self.jit = jit
         self.dtype = dtype
         self.device = torch.device(device)
+        # the captured programs of the current device form (jit on a card)
+        self._programs = graphs.Programs(self.device)
         self.hierarchy: Hierarchy | None = None
         self._device_hierarchy: DeviceHierarchy | None = None
         self._perm = None       # device index tensors of the reordering
         self._iperm = None
         self._frozen = False    # KSPSetReusePreconditioner analogue
-        self._dist = None       # (mesh, DistributedState) of the last mesh
+        self._dist = None       # (mesh, device form, DistributedState)
         self._injected_coeffs = None  # set_poly_coefficients payloads
         # whether this PCAIR's upload of its host hierarchy is still
         # registered there as pending (see Hierarchy.upload_done)
@@ -77,12 +98,20 @@ class PCAIR:
         self.reset()
 
     def reset(self):
-        """Drop the hierarchy, its device form and injected coefficients."""
+        """Drop the hierarchy, its device form and graphs and injected
+        coefficients."""
         self.hierarchy = None
         self._device_hierarchy = None
         self._dist = None
         self._injected_coeffs = None
         self._upload_owed = False
+        self.drop_graphs()
+
+    def drop_graphs(self):
+        """Drop the captured programs, and with them the operators they
+        hold, when the device form is replaced or dropped: the next call
+        captures anew."""
+        self._programs.clear()
 
     def freeze(self, flag: bool = True):
         """While frozen, ``setup`` keeps the hierarchy it has
@@ -149,6 +178,7 @@ class PCAIR:
                 injected_coeffs=self._injected_coeffs, mesh=mesh)
         self._device_hierarchy = None
         self._dist = None
+        self.drop_graphs()
         self.hierarchy.expect_upload()
         self._upload_owed = True
         if self.options.print_stats_timings:
@@ -203,6 +233,7 @@ class PCAIR:
         self._device_hierarchy = self.hierarchy.solve_form
         self._dist = None
         self._upload_owed = False
+        self.drop_graphs()
         return self
 
     def on(self, device) -> "PCAIR":
@@ -212,7 +243,8 @@ class PCAIR:
         compacted once every PCAIR sharing it has uploaded, so make the
         twins before the last upload; afterwards this raises
         ``ValueError``."""
-        twin = PCAIR(self.options, dtype=self.dtype, device=device)
+        twin = PCAIR(self.options, jit=self.jit, dtype=self.dtype,
+                     device=device)
         if isinstance(self.hierarchy, Hierarchy):
             self.hierarchy.expect_upload()
             twin._upload_owed = True
@@ -298,10 +330,24 @@ class PCAIR:
         return lambda r: vcycle_kaskade(dh.levels, dh.coarse_inv, r,
                                         smooth_order)
 
+    def _graphed(self) -> bool:
+        return self.jit and graphs.enabled(self.device)
+
+    def _program(self, key, fn, meshes=()):
+        """The captured program of ``key`` over the current device form."""
+        return self._programs.get(self._device_hierarchy, key, fn, meshes)
+
     def apply(self, r):
         """y = M^-1 r."""
         M = self._precond(self.upload())
-        return self._from_internal(M(self._to_internal(self._vector(r))))
+        r = self._vector(r)
+
+        def run(v):
+            return self._from_internal(M(self._to_internal(v)))
+
+        if self._graphed():
+            return self._program(("apply", r.shape[0], r.dtype), run)(r)
+        return run(r)
 
     def __call__(self, r):
         return self.apply(r)
@@ -311,9 +357,11 @@ class PCAIR:
         """Krylov solve with this preconditioner: ``ksp`` is "gmres"
         (``side`` left or right), "fgmres" or "richardson".  GMRES runs
         ``gmres_stationary`` (solvers/jitted.py, one host read an
-        iteration); ``eager=True``, or PFLARE_EAGER_KSP=1, runs the
-        host-driven ``gmres`` of solvers/krylov.py instead (one host read
-        a Gram-Schmidt dot; the reference's debug path).  Returns a
+        iteration); ``jit=False``, ``eager=True`` or PFLARE_EAGER_KSP=1
+        runs the host-driven ``gmres`` of solvers/krylov.py instead (one
+        host read a Gram-Schmidt dot).  With graphs (``jit`` on a card)
+        the preconditioner of every solver is one replay, and so are
+        ``gmres_stationary``'s operator and residual.  Returns a
         SolveResult whose ``x`` is a device tensor in the caller's
         order."""
         if eager is None:
@@ -322,20 +370,29 @@ class PCAIR:
         b = self._to_internal(self._vector(b))
         x0 = None if x0 is None else self._to_internal(self._vector(x0))
         M = self._precond(dh)
-        if ksp == "gmres" and eager:
-            res = gmres(dh.top, b, x0=x0, M=M, side=side, rtol=rtol,
+        program = None
+        if self._graphed():
+            def program(fn, name):
+                return self._program((name, side, b.shape[0]), fn)
+
+            precond = program(M, "precond")
+        else:
+            precond = M
+        if ksp == "gmres" and (eager or not self.jit):
+            res = gmres(dh.top, b, x0=x0, M=precond, side=side, rtol=rtol,
                         atol=atol, max_it=max_it, restart=restart)
         elif ksp == "gmres":
             x, its, hist, done = gmres_stationary(
                 dh.top.matvec, M, b, x0, rtol, atol, int(max_it),
-                max(1, min(int(restart), int(max_it))), side)
+                max(1, min(int(restart), int(max_it))), side,
+                program=program)
             res = SolveResult(x, its, done, list(hist[: its + 1]))
         elif ksp == "fgmres":
-            res = fgmres(dh.top, b, x0=x0, M=M, rtol=rtol, atol=atol,
+            res = fgmres(dh.top, b, x0=x0, M=precond, rtol=rtol, atol=atol,
                          max_it=max_it, restart=restart)
         elif ksp == "richardson":
-            res = richardson(dh.top, b, x0=x0, M=M, rtol=rtol, atol=atol,
-                             max_it=max_it)
+            res = richardson(dh.top, b, x0=x0, M=precond, rtol=rtol,
+                             atol=atol, max_it=max_it)
         else:
             raise ValueError(f"unknown ksp {ksp!r}")
         res.x = self._from_internal(res.x)
@@ -347,9 +404,11 @@ class PCAIR:
         Richardson (``ksp="richardson"``) or right-preconditioned GMRES
         without restart (``"gmres"``/``"fgmres"``).  Returns (x, residual
         norms [max_it + 1]) as device tensors, x in the caller's order;
-        the caller judges convergence from the norms.  Under
-        full_smoothing_up_and_down the cycle is ``vcycle_full``, as in
-        ``solve`` (the reference's solve_device runs the Kaskade cycle
+        the caller judges convergence from the norms.  With graphs
+        (``jit`` on a card) the whole solve is one replay, the
+        reference's one jitted ``run`` (pflare_tpu/air/pcair.py:460-466).
+        Under full_smoothing_up_and_down the cycle is ``vcycle_full``, as
+        in ``solve`` (the reference's solve_device runs the Kaskade cycle
         there, pflare_tpu/air/pcair.py:452-458).  ``mesh``: a row mesh on
         this PCAIR's device; the hierarchy is sharded over it
         (``_distributed_state``), b and x0 are permuted, padded and
@@ -362,18 +421,29 @@ class PCAIR:
             raise ValueError(f"unknown ksp {ksp!r}")
         b = self._to_internal(self._vector(b))
         x0 = None if x0 is None else self._to_internal(self._vector(x0))
+        n = b.shape[0]
         if mesh is None:
             dh = self.upload()
-            x, norms = solver(dh.top.matvec, self._precond(dh), b, max_it,
-                              x0=x0)
-            return self._from_internal(x), norms
-        from ..parallel.mesh import shard_vec
+            matvec, precond, meshes = dh.top.matvec, self._precond(dh), ()
+        else:
+            from ..parallel.mesh import shard_vec
 
-        st = self._distributed_state(mesh)
-        x, norms = solver(st.top.matvec, st.precond, shard_vec(b, mesh),
-                          max_it,
-                          x0=None if x0 is None else shard_vec(x0, mesh))
-        return self._from_internal(x[: b.shape[0]]), norms
+            st = self._distributed_state(mesh)
+            matvec, precond, meshes = st.top.matvec, st.precond, (mesh,)
+            b = shard_vec(b, mesh)
+            x0 = None if x0 is None else shard_vec(x0, mesh)
+        args = (b,) if x0 is None else (b, x0)
+
+        def run(b, *x0):
+            return solver(matvec, precond, b, max_it,
+                          x0=x0[0] if x0 else None)
+
+        if self._graphed():
+            run = self._program(("solve_device", solver.__name__,
+                                 int(max_it), len(args), b.shape[0], mesh),
+                                run, meshes)
+        x, norms = run(*args)
+        return self._from_internal(x[:n]), norms
 
     def _distributed_state(self, mesh) -> "DistributedState":
         """The solve form sharded over ``mesh``, built once per mesh and
@@ -385,12 +455,13 @@ class PCAIR:
         hierarchy stay whole, their vectors cut to n and padded back."""
         from ..parallel.mesh import _shard_op, padded_rows, shard_hierarchy
 
-        if self._dist is not None and self._dist[0] is mesh:
-            return self._dist[1]
+        dh = self.upload()
+        if (self._dist is not None and self._dist[0] is mesh
+                and self._dist[1] is dh):
+            return self._dist[2]
         if torch.empty(0, device=self.device).device != mesh.device:
             raise ValueError(f"the mesh's shards lie on {mesh.device}, this "
                              f"PCAIR solves on {self.device}")
-        dh = self.upload()
         n = dh.top.shape[0]
         top = _shard_op(dh.top, mesh, padded_rows(n, mesh), "top")
         if dh.full_smoothing or not dh.levels:
@@ -408,7 +479,7 @@ class PCAIR:
             def precond(r):
                 return vcycle_kaskade(levels, coarse_inv, r, order)
         state = DistributedState(top, levels, coarse_inv, schedule, precond)
-        self._dist = (mesh, state)
+        self._dist = (mesh, dh, state)
         return state
 
     # ~~~~~~~~~~ introspection ~~~~~~~~~~

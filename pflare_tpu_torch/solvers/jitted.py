@@ -1,13 +1,16 @@
 """Device-resident solvers.
 
 The reference traces these into one XLA program
-(pflare_tpu/solvers/jitted.py); PyTorch runs eagerly, so here they are
-Python loops.  ``richardson_fixed``, ``fgmres_fixed`` and
-``gmres_right_fixed`` run a fixed number of iterations whose every step
-only enqueues device work: residual norms stay on the device until the
-caller reads them.  ``gmres_stationary`` is restarted GMRES with early
-exit: it reads one Hessenberg column back an Arnoldi step, the one host
-round trip a convergence test needs.
+(pflare_tpu/solvers/jitted.py).  Here ``richardson_fixed``,
+``fgmres_fixed`` and ``gmres_right_fixed`` run a fixed number of
+iterations whose every step only enqueues device work (residual norms
+stay on the device until the caller reads them), so that on a card
+``PCAIR(jit=True)`` captures each whole solve into one CUDA graph
+(utils/graphs.py); elsewhere they run as Python loops.
+``gmres_stationary`` is restarted GMRES with early exit: it reads one
+Hessenberg column back an Arnoldi step, the one host round trip a
+convergence test needs, and takes its operator and residual applications
+as programs of the caller's (``program``).
 """
 
 from __future__ import annotations
@@ -47,17 +50,30 @@ def fgmres_fixed(matvec, precond, b, max_it: int, x0=None):
     norms[max_it + 1]): norms[k] is the least-squares residual estimate
     after k iterations, and the caller finds the convergence point.  Two
     Gram-Schmidt passes every iteration, unconditionally (a fast-converging
-    preconditioned GMRES cancels most of w within a few iterations); the
-    small least-squares problems are solved on the device too."""
+    preconditioned GMRES cancels most of w within a few iterations).
+
+    The small least-squares problems (the reference's ``lstsq``) are
+    solved by Givens rotations applied to each new Hessenberg column as it
+    comes, as PETSc's GMRES does, in tensor operations with no host read,
+    so that the solve captures into one CUDA graph.  A column with an exact
+    breakdown (nothing left to rotate) keeps the identity rotation: its
+    component of the rotated right-hand side stays in the residual
+    estimate, and its entry of the solution is 0 (``gmres_stationary``'s
+    guard)."""
     dtype, device = b.dtype, b.device
     x = torch.zeros_like(b) if x0 is None else x0
     r0 = b - matvec(x) if x0 is not None else b
     beta = torch.linalg.norm(r0)
     one = torch.ones((), dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
     V = [r0 / torch.where(beta > 0, beta, one)]
     Z = []
     m = max_it
     H = torch.zeros((m + 1, m), dtype=dtype, device=device)
+    Rt = torch.zeros((m, m), dtype=dtype, device=device)   # rotated H
+    cs, sn = [], []
+    g = [beta]             # the rotated right-hand side, entry by entry
+    lost = zero            # its part in the rows of broken-down columns
     norms = [beta]
     for j in range(m):
         z = precond(V[j])
@@ -71,14 +87,31 @@ def fgmres_fixed(matvec, precond, b, max_it: int, x0=None):
         hj1 = torch.linalg.norm(w)
         H[j + 1, j] = hj1
         V.append(w / torch.where(hj1 > 0, hj1, one))
-        g = torch.zeros(j + 2, dtype=dtype, device=device)
-        g[0] = beta
-        Hj = H[: j + 2, : j + 1]
-        y = torch.linalg.lstsq(Hj, g[:, None]).solution[:, 0]
-        norms.append(torch.linalg.norm(g - Hj @ y))
-    g = torch.zeros(m + 1, dtype=dtype, device=device)
-    g[0] = beta
-    y = torch.linalg.lstsq(H, g[:, None]).solution[:, 0]
+        col = list(H[: j + 2, j].unbind())
+        for i in range(j):     # the stored rotations
+            a, bb = col[i], col[i + 1]
+            col[i] = cs[i] * a + sn[i] * bb
+            col[i + 1] = -sn[i] * a + cs[i] * bb
+        a, bb = col[j], col[j + 1]
+        rho = torch.hypot(a, bb)
+        live = rho > 0
+        safe = torch.where(live, rho, one)
+        cs.append(torch.where(live, a / safe, one))
+        sn.append(torch.where(live, bb / safe, zero))
+        col[j] = cs[j] * a + sn[j] * bb
+        Rt[: j + 1, j] = torch.stack(col[: j + 1])
+        gj = g[j]
+        g[j] = cs[j] * gj
+        g.append(-sn[j] * gj)
+        lost = torch.where(live, lost, torch.hypot(lost, gj))
+        norms.append(torch.hypot(lost, g[j + 1]))
+    # the solution of the triangular system, broken-down columns patched
+    # to a unit diagonal and a zero right-hand side
+    diag = Rt.diagonal()
+    alive = diag != 0
+    Rt = Rt + torch.diag(torch.where(alive, zero, one))
+    rhs = torch.where(alive, torch.stack(g[:m]), zero)
+    y = torch.linalg.solve_triangular(Rt, rhs[:, None], upper=True)[:, 0]
     update = torch.zeros_like(b)
     for i in range(m):
         update = update + y[i] * Z[i]
@@ -92,7 +125,7 @@ def gmres_right_fixed(matvec, precond, b, max_it: int, x0=None):
 
 
 def gmres_stationary(matvec, precond, b, x0, rtol, atol, max_it: int,
-                     restart: int, side: str = "left"):
+                     restart: int, side: str = "left", program=None):
     """Restarted GMRES(``restart``) with a stationary preconditioner, the
     reference's default solver (pflare_tpu/solvers/jitted.py:76-207).
 
@@ -113,6 +146,12 @@ def gmres_stationary(matvec, precond, b, x0, rtol, atol, max_it: int,
     zero RHS.  The residual that ends one cycle starts the next, so a
     solve makes iterations + cycles + 1 host reads.
 
+    ``program(fn, name)`` turns each of the three device programs of a
+    step into the callable the solve runs: "op" (the preconditioned
+    operator), "resid" (x, b -> the residual the method monitors) and
+    "precond"; ``PCAIR(jit=True)`` gives each a CUDA graph, the default
+    runs them as they are.
+
     Returns (x, total_it, hist, converged): hist[k] is the residual norm
     after k iterations (max_it + 1 entries, zero beyond total_it)."""
     if side not in ("left", "right"):
@@ -121,17 +160,22 @@ def gmres_stationary(matvec, precond, b, x0, rtol, atol, max_it: int,
     dtype, device = b.dtype, b.device
     npdt = torch.empty(0, dtype=dtype).numpy().dtype
     one = torch.ones((), dtype=dtype, device=device)
+    if program is None:
+        def program(fn, name):
+            return fn
 
-    def op(v):
+    def _op(v):
         return precond(matvec(v)) if side == "left" else matvec(precond(v))
 
-    def resid(x):
+    def _resid(x, b):
         r = b - matvec(x)
         return precond(r) if side == "left" else r
 
-    b_eff = precond(b) if side == "left" else b
+    op, resid = program(_op, "op"), program(_resid, "resid")
+    pre = program(precond, "precond")
+    b_eff = pre(b) if side == "left" else b
     x = torch.zeros_like(b) if x0 is None else x0
-    r = resid(x)
+    r = resid(x, b)
     rn_t = torch.linalg.norm(r)
     rhs_norm, rn = _read(torch.stack([torch.linalg.norm(b_eff), rn_t]))
     if not rhs_norm > 0:
@@ -192,9 +236,9 @@ def gmres_stationary(matvec, precond, b, x0, rtol, atol, max_it: int,
         y = sla.solve_triangular(Hs, np.where(alive, g[:m], 0), lower=False)
         update = torch.mv(V[:j].T, torch.as_tensor(y[:j], dtype=dtype,
                                                    device=device))
-        x = x + (precond(update) if side == "right" else update)
+        x = x + (pre(update) if side == "right" else update)
         tot += j
-        r = resid(x)
+        r = resid(x, b)
         rn_t = torch.linalg.norm(r)
         rn = _read(rn_t)[()]
         hist[tot] = rn

@@ -18,11 +18,14 @@ the same product as a PyTorch gather from ``x_pad``.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from .. import cuda
+from ..utils import graphs
 from .dtypes import numpy_dtype
 
 TILE_ROWS = 128
@@ -30,6 +33,7 @@ TILE_ROWS = 128
 # kept so both packages choose the same container for every operator.
 _ENVELOPE_BYTES = 12 * 1024 * 1024
 KERNEL_LAUNCHES = 0  # launches of csrc/banded_spmv.cu since the last reset
+graphs.count_launches(sys.modules[__name__], "banded_spmv_kernel")
 
 
 def banded_spmv_plain(data, lcols, x, n: int, w: int, W: int,

@@ -17,16 +17,20 @@ reference's XLA loop (pflare_tpu/sparse/dia.py:197-205) in PyTorch.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
 from .. import cuda
+from ..utils import graphs
 from .dtypes import numpy_dtype, torch_dtype
 
 MAX_OFFSETS = 16     # the kernel takes its offsets by value
 KERNEL_LAUNCHES = 0  # launches of csrc/dia_spmv.cu since the last reset
+graphs.count_launches(sys.modules[__name__], "dia_spmv_kernel")
 # csrc/dia_spmv.cu's grouping (kThreads, Chunk<T>::rows): a block of
 # BLOCK_THREADS threads, each owning ROWS_PER_THREAD consecutive rows
 BLOCK_THREADS = 256

@@ -3,21 +3,72 @@
 ``ELL`` keeps values and columns as ``[n_rows, K]``; ``TELL`` as
 ``[K, n_rows]``, the layout of the solve-phase operators that are neither
 DIA nor banded: slot k of every row is one contiguous row of the tensor,
-so the matvec is K full-length gathers (``index_select``) plus FMAs.
-The reference computes this gather with XLA, not Pallas, so it stays
-PyTorch here; a gather kernel is later work.  Padded slots hold value 0
-and column 0, so they add nothing.
+so each slot row is one coalesced stream.  The reference computes its
+product with XLA, not Pallas, and fuses the slot loop inside its jitted
+solve; here, on a CUDA tensor, ``TELL.matvec`` launches the hand-written
+kernel ``csrc/tell_spmv.cu`` (one launch for all K slots), and on a CPU
+tensor it runs ``tell_spmv_plain``, the slot loop of gathers, multiplies
+and adds.  Padded slots hold value 0 and column 0, so they add nothing.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import cuda
+from ..utils import graphs
 from .pattern import SparsityPattern
 from .dtypes import numpy_dtype
 from .spgemm import segment_sum
+
+KERNEL_LAUNCHES = 0  # launches of csrc/tell_spmv.cu since the last reset
+graphs.count_launches(sys.modules[__name__], "tell_spmv_kernel")
+BLOCK_THREADS = 256  # csrc/tell_spmv.cu's kThreads: one row a thread
+
+
+def tell_spmv_plain(data, cols, x):
+    """Plain PyTorch TELL product: one gather, one multiply and one add a
+    slot, summed in slot order (the reference's XLA loop,
+    pflare_tpu/sparse/ell.py:217-223)."""
+    y = None
+    for k in range(data.shape[0]):
+        term = data[k] * x.index_select(0, cols[k])
+        y = term if y is None else y + term
+    if y is None:
+        return x.new_zeros(data.shape[1])
+    return y
+
+
+def tell_spmv_cuda(data, cols, x):
+    """Launch ``csrc/tell_spmv.cu`` on PyTorch's current stream (no
+    synchronisation): ``data`` ``[K, n]`` float32/float64 and ``cols``
+    ``[K, n]`` int32, both contiguous, every column inside x."""
+    global KERNEL_LAUNCHES
+    K, n = data.shape
+    if not (data.is_cuda and cols.device == data.device
+            and x.device == data.device):
+        raise ValueError("tell_spmv_cuda: tensors must be on one CUDA "
+                         "device")
+    if data.dtype not in (torch.float32, torch.float64) or x.dtype != data.dtype:
+        raise ValueError(f"tell_spmv_cuda: dtypes {data.dtype}/{x.dtype}; "
+                         "need float32 or float64, equal")
+    if cols.dtype != torch.int32 or tuple(cols.shape) != (K, n):
+        raise ValueError("tell_spmv_cuda: cols must be int32 [K, n]")
+    if not (data.is_contiguous() and cols.is_contiguous()
+            and x.is_contiguous() and x.dim() == 1):
+        raise ValueError("tell_spmv_cuda: inputs must be contiguous, x 1-D")
+    if K < 1:
+        raise ValueError("tell_spmv_cuda: no slots")
+    y = torch.empty(n, dtype=data.dtype, device=data.device)
+    cuda.launch("tell_spmv", data.dtype, data.data_ptr(), cols.data_ptr(),
+                x.data_ptr(), y.data_ptr(), n, K,
+                cuda.stream_handle(data.device))
+    KERNEL_LAUNCHES += 1
+    return y
 
 
 class ELL:
@@ -195,12 +246,11 @@ class TELL:
             shape=self.pattern.shape)
 
     def matvec(self, x):
-        """y = A @ x: K full-length gathers + FMAs, summed in slot order."""
-        y = None
-        for k in range(self.data.shape[0]):
-            term = self.data[k] * x.index_select(0, self.cols[k])
-            y = term if y is None else y + term
-        return y
+        """y = A @ x, summed in slot order: the kernel on a CUDA tensor,
+        the plain slot loop on a CPU one."""
+        if x.is_cuda and self.data.shape[0]:
+            return tell_spmv_cuda(self.data, self.cols, x.contiguous())
+        return tell_spmv_plain(self.data, self.cols, x)
 
     def diagonal(self):
         """The diagonal, 0 where absent."""

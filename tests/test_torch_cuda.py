@@ -559,3 +559,204 @@ def test_ell_transpose_and_flat_values_card_equal_cpu():
         assert M.data.device == flat.device
         assert torch.equal(M.flat_values(), flat)
         assert torch.equal(M.data.cpu(), cls.from_scipy(A).data)
+
+
+# ~~~~~~~~~~ the TELL kernel and the one-program solve ~~~~~~~~~~
+
+def _tell_cases(rng):
+    """Random [K, n] operators: K = 1, 3, 36 and 112 slots, n not a
+    multiple of the block, more columns than rows and fewer."""
+    out = []
+    for K, n, n_cols in ((1, 5, 5), (3, 1001, 500), (36, 20_003, 30_000),
+                         (112, 70_001, 70_001)):
+        out.append((rng.standard_normal((K, n)),
+                    rng.integers(0, n_cols, (K, n)), n_cols))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tell_kernel_equals_plain_on_card(dtype):
+    """The TELL kernel sums in slot order with the product and sum rounded
+    apart, so it gives its plain version's bits: on random operators, on a
+    matrix's TELL form and on the stacked TELL block of a 4-shard
+    operator.  Each product is one launch."""
+    from pflare_tpu_torch.parallel import HaloELL, make_mesh
+    from pflare_tpu_torch.sparse import TELL
+    from pflare_tpu_torch.sparse import ell as tell
+
+    dev = _card()
+    rng = np.random.default_rng(12)
+    for data, cols, n_cols in _tell_cases(rng):
+        d = torch.as_tensor(data, dtype=dtype, device=dev)
+        c = torch.as_tensor(cols, dtype=torch.int32, device=dev)
+        x = torch.as_tensor(rng.standard_normal(n_cols), dtype=dtype,
+                            device=dev)
+        launches = tell.KERNEL_LAUNCHES
+        y = tell.tell_spmv_cuda(d, c, x)
+        assert tell.KERNEL_LAUNCHES == launches + 1
+        assert torch.equal(y, tell.tell_spmv_plain(d, c, x))
+    A = _random_band(4096, 900, 6)
+    x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=dtype,
+                        device=dev)
+    M = TELL.from_scipy(A, dtype=dtype).to(dev)
+    assert torch.equal(M.matvec(x), tell.tell_spmv_plain(M.data, M.cols, x))
+    mesh = make_mesh(4)
+    E = HaloELL.from_scipy(A, mesh, dtype=dtype, kind="tell")
+    blk = E.blocks[0]
+    assert isinstance(blk, TELL)
+    xs = torch.as_tensor(rng.standard_normal(blk.shape[1]), dtype=dtype,
+                         device=dev)
+    assert torch.equal(blk.matvec(xs), tell.tell_spmv_plain(blk.data,
+                                                            blk.cols, xs))
+    want = M.matvec(x)
+    got = E.matvec(torch.nn.functional.pad(x, (0, E.n_pad - A.shape[0])))
+    torch.cuda.synchronize()
+    assert float((got[:A.shape[0]] - want).norm() / want.norm()) < (
+        1e-6 if dtype == torch.float32 else 1e-13)
+
+
+def test_tell_wrapper_refuses_bad_input_on_card():
+    from pflare_tpu_torch.sparse import ell as tell
+
+    dev = _card()
+    d = torch.ones((2, 8), device=dev)
+    c = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    for args in ((d, c, torch.ones(4, dtype=torch.float64, device=dev)),
+                 (d, c.long(), torch.ones(4, device=dev)),
+                 (d.T.contiguous().T, c, torch.ones(4, device=dev))):
+        with pytest.raises(ValueError):
+            tell.tell_spmv_cuda(*args)
+
+
+def _counts():
+    from pflare_tpu_torch.sparse import ell as tell
+
+    return (tdia.KERNEL_LAUNCHES, tbanded.KERNEL_LAUNCHES,
+            tell.KERNEL_LAUNCHES)
+
+
+def _eager(pc, fn):
+    """``fn()`` with ``pc.jit`` off."""
+    pc.jit = False
+    try:
+        return fn()
+    finally:
+        pc.jit = True
+
+
+def _main_path_pc(dev, n=64):
+    A = tpf.adv_diff_2d(n).astype(np.float32)
+    opts = tpf.AIROptions(a_lump=True, a_drop=1e-5, strong_threshold=0.99,
+                          max_levels=6,
+                          coarsest_inverse_type=tpf.InverseType.NEWTON,
+                          coarsest_poly_order=24,
+                          coarsest_matrix_free_polys=True)
+    return A, tpf.PCAIR(opts, dtype=torch.float32, device=dev).setup(A)
+
+
+def test_graphs_equal_eager_on_card():
+    """``jit=True`` on the card: apply, solve_device (Richardson and GMRES,
+    with and without x0, serial and on a 2-shard mesh) replay CUDA graphs
+    whose results equal the eager path's bit for bit, with the same launch
+    counts and exchange log; solve's GMRES through graphs equals the
+    stationary GMRES run eagerly bit for bit, in jit=False's iterations."""
+    from pflare_tpu_torch.parallel import make_mesh
+    from pflare_tpu_torch.solvers.jitted import gmres_stationary
+
+    dev = _card()
+    A, pc = _main_path_pc(dev)
+    n = A.shape[0]
+    rng = np.random.default_rng(1)
+    b, x0 = rng.standard_normal(n), rng.standard_normal(n)
+    r = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device=dev)
+    for _ in range(3):
+        y = pc.apply(r)
+    assert torch.equal(y, _eager(pc, lambda: pc.apply(r)))
+    mesh = make_mesh(2)
+    for kw in ({}, {"x0": x0}, {"ksp": "gmres"}, {"mesh": mesh},
+               {"mesh": mesh, "x0": x0}):
+        for _ in range(2):
+            mesh.reset_log()
+            before = _counts()
+            x, norms = pc.solve_device(b, max_it=6, **kw)
+            launches = np.subtract(_counts(), before)
+            log = {k: tuple(v) for k, v in mesh.log.items()}
+        mesh.reset_log()
+        before = _counts()
+        xe, ne = _eager(pc, lambda: pc.solve_device(b, max_it=6, **kw))
+        assert (launches == np.subtract(_counts(), before)).all()
+        assert launches[0] > 0          # the DIA kernel, at least
+        assert log == {k: tuple(v) for k, v in mesh.log.items()}
+        assert torch.equal(x, xe) and torch.equal(norms, ne)
+    res = pc.solve(b, rtol=1e-5, side="right")
+    dh = pc.upload()
+    bi = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    _, its, hist, _ = gmres_stationary(dh.top.matvec, pc._precond(dh), bi,
+                                       None, 1e-5, 1e-50, 10000, 30, "right")
+    assert res.converged and res.iterations == its
+    np.testing.assert_array_equal(res.history, hist[:its + 1])
+    assert _eager(pc, lambda: pc.solve(b, rtol=1e-5,
+                                       side="right")).iterations == its
+
+
+def test_install_replays_the_new_operators_on_card():
+    """After a device re-setup's ``install`` the graphs of the old
+    operators are gone: the next replay equals an eager solve on the new
+    ones bit for bit, and differs from the old solve."""
+    dev = _card()
+    A = tpf.adv_diff_2d(48)
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 0.05 * np.random.default_rng(4)
+                         .standard_normal(A.nnz))
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    opts = tpf.AIROptions().replace(reuse_sparsity=True, reuse_amount=3,
+                                    reuse_poly_coeffs=True)
+    pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev).setup(A)
+    for _ in range(2):
+        _, old = pc.solve_device(b, max_it=5)
+    pc.build_device_resetup().install(pc, A2)
+    assert len(pc._programs) == 0
+    for _ in range(2):
+        x, norms = pc.solve_device(b, max_it=5)
+    xe, ne = _eager(pc, lambda: pc.solve_device(b, max_it=5))
+    assert torch.equal(x, xe) and torch.equal(norms, ne)
+    assert not torch.equal(norms, old)
+
+
+def test_failed_capture_raises_on_card():
+    """A program that reads the host cannot be captured: the capture
+    raises (no eager fallback), and the card works after it."""
+    from pflare_tpu_torch.utils import graphs
+
+    dev = _card()
+    prog = graphs.Programs(dev).get(None, ("sync",),
+                                    lambda v: v * float(v.sum()))
+    with pytest.raises(RuntimeError, match="CUDA graph capture of"):
+        prog(torch.ones(4, device=dev))
+    torch.cuda.synchronize()
+    assert float((torch.ones(4, device=dev) * 2).sum()) == 8.0
+
+
+def test_graph_kernel_nodes_equal_counted_on_card(monkeypatch):
+    """Read back from each kept graph, the kernel nodes of each of our
+    kernels (what every replay launches) equal what a replay adds to the
+    launch counters: for apply, solve_device (serial and on a 2-shard
+    mesh) and the GMRES programs of solve."""
+    from pflare_tpu_torch.parallel import make_mesh
+    from pflare_tpu_torch.utils import graphs
+
+    dev = _card()
+    monkeypatch.setattr(graphs, "KEEP_GRAPHS", True)
+    A, pc = _main_path_pc(dev)
+    b = np.random.default_rng(2).standard_normal(A.shape[0])
+    mesh = make_mesh(2)
+    for _ in range(2):
+        pc.apply(b)
+        pc.solve_device(b, max_it=4)
+        pc.solve_device(b, max_it=4, mesh=mesh)
+    pc.solve(b, rtol=1e-5, side="right")
+    assert len(pc._programs) == 6
+    for key, prog in pc._programs.items():
+        assert prog.graph_kernels() == prog.counted(), key[:4]
+        assert prog.counted()["dia_spmv_kernel"] > 0, key[:4]

@@ -217,6 +217,122 @@ def test_subpackage_exports_cover_the_reference(sub):
     assert missing == []
 
 
+# parameters of the reference's public callables that the port's
+# counterparts do not take, each with its reason ("sub.name" or
+# "sub.Class.method", parameter)
+SIGNATURE_EXEMPT = {
+    # ROADMAP's do-not-port list: the TPU tile geometry, the banded
+    # kernel's bf16 split precision and TPU tile rows, the numpy/jax
+    # switch of the host coefficient builders
+    ("sparse.DIA", "tr"): "do-not-port: the TPU tile geometry _fused_tr",
+    ("sparse.BandedSpMV", "precision"): "do-not-port: the bf16 split mode",
+    ("sparse.BandedSpMV.from_scipy", "precision"):
+        "do-not-port: the bf16 split mode",
+    ("sparse.BandedSpMV.from_scipy", "tile_rows"):
+        "do-not-port: TPU tiles; the port's rows a tile are fixed",
+    ("sparse.BandedSpMV.viable", "tile_rows"):
+        "do-not-port: TPU tiles; the port's rows a tile are fixed",
+    ("inverse.coefficients_power", "xp"): "do-not-port: the xp switch",
+    ("inverse.coefficients_arnoldi", "xp"): "do-not-port: the xp switch",
+    ("inverse.box_muller", "xp"): "do-not-port: the xp switch",
+    ("inverse.arnoldi_host", "xp"): "do-not-port: the xp switch",
+    ("inverse.newton_roots", "xp"): "do-not-port: the xp switch",
+    # names the port replaced: vcycle_full lost its dead knobs, the
+    # per-level uploads became Hierarchy.to
+    ("air.vcycle_full", "pre"): "dead pre-smoothing knob removed",
+    ("air.vcycle_full", "post"): "dead post-smoothing knob removed",
+    ("air.Hierarchy", "_device_levels"): "replaced by Hierarchy.to",
+    ("air.LevelData", "device"): "replaced by Hierarchy.to",
+    # the port's own designs
+    ("sparse.SpGEMMPlan.execute", "A"):
+        "runs on CSR values and device tables (the device re-setup's halves)",
+    ("sparse.SpGEMMPlan.execute", "B"):
+        "runs on CSR values and device tables (the device re-setup's halves)",
+    ("sparse.FixedSparsityPolyPlan.execute", "A"):
+        "runs on CSR values and device tables (the device re-setup's halves)",
+    ("inverse.Inverse", "meta"):
+        "the reference's meta entries are the port's named fields",
+    ("sparse.ELL.from_scipy", "pattern"):
+        "no caller: the port's reuse paths set values by CSR value tables",
+    ("sparse.TELL.from_scipy", "pattern"):
+        "no caller: the port's reuse paths set values by CSR value tables",
+    ("inverse.build_inverse", "A"):
+        "builds from the host matrix alone, the reference's A_scipy",
+    ("parallel.HaloELL", "data"): "holds one container a shard",
+    ("parallel.HaloELL", "lcols"): "holds one container a shard",
+    ("parallel.HaloELL", "n"): "holds one container a shard",
+    ("utils.timers.device_sync_read", "x"):
+        "takes the tensors themselves (*tensors), not one pytree",
+    # unused in the reference (pflare_tpu/solvers/krylov.py:44-45)
+    ("solvers.richardson", "norm_type"): "unused in the reference",
+}
+
+
+def _exported_callables(sub):
+    """(key, reference callable, port callable) of each public name the
+    reference's sub-package exports and the port has, and of each public
+    method of an exported class."""
+    import importlib
+    import inspect
+
+    ref = importlib.import_module("pflare_tpu." + sub)
+    port = importlib.import_module("pflare_tpu_torch." + sub)
+    names = getattr(ref, "__all__", None) or [
+        n for n, v in vars(ref).items() if not n.startswith("_")
+        and getattr(v, "__module__", None) == ref.__name__]
+    for name in names:
+        if not hasattr(port, name):
+            continue
+        r, p = getattr(ref, name), getattr(port, name)
+        if callable(r) and callable(p):
+            yield f"{sub}.{name}", r, p
+        if inspect.isclass(r):
+            for attr in vars(r):
+                if attr.startswith("_") or not hasattr(p, attr):
+                    continue
+                rv, pv = getattr(r, attr), getattr(p, attr)
+                if inspect.isroutine(rv) and inspect.isroutine(pv):
+                    yield f"{sub}.{name}.{attr}", rv, pv
+
+
+def _params(fn):
+    import inspect
+
+    try:
+        return list(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        return None
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_exported_callables_take_the_reference_parameters(sub):
+    """Each public callable a sub-package exports (and each public method
+    of an exported class) takes every parameter name of the reference's,
+    or the gap is in ``SIGNATURE_EXEMPT`` with its reason."""
+    gaps = []
+    for key, ref_fn, port_fn in _exported_callables(sub):
+        want, have = _params(ref_fn), _params(port_fn)
+        if want is None or have is None:
+            continue
+        gaps += [f"{key}({name})" for name in want
+                 if name not in have and (key, name) not in SIGNATURE_EXEMPT]
+    assert gaps == []
+
+
+def test_signature_exemptions_are_needed():
+    """Every exemption names a parameter the reference takes and the port
+    does not, so the table shrinks when the port catches up; PCAIR takes
+    the reference's ``jit``."""
+    found = {}
+    for sub in SUBPACKAGES:
+        for key, ref_fn, port_fn in _exported_callables(sub):
+            found[key] = (_params(ref_fn) or [], _params(port_fn) or [])
+    for (key, name), reason in SIGNATURE_EXEMPT.items():
+        want, have = found[key]
+        assert name in want and name not in have, (key, name, reason)
+    assert "jit" in found["air.PCAIR"][1]
+
+
 def test_replaced_names_have_counterparts():
     """Each name of ``REPLACED_BY`` is gone from the port and its
     counterpart is there; the replaced module functions exist in the

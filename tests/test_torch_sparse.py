@@ -19,6 +19,7 @@ from pflare_tpu_torch import adv_diff_2d
 from pflare_tpu_torch.sparse import DIA, ELL, TELL, BandedSpMV
 from pflare_tpu_torch.sparse import banded as tbanded
 from pflare_tpu_torch.sparse import dia as tdia
+from pflare_tpu_torch.sparse import ell as tell
 from pflare_tpu_torch.air.fullspace import make_op
 from torch_cases import (LEVEL0_OPERATORS, dia_odd_rows, masked_level0,
                          masked_level1)
@@ -191,6 +192,49 @@ def test_tell_ell_plain_match_scipy_f64(case):
         M = cls.from_scipy(A, dtype=torch.float64)
         assert _rel(M.matvec(torch.from_numpy(x)), A @ x) < 1e-14
         assert abs(M.to_scipy() - A).max() == 0
+
+
+def _emulate_tell_kernel(data, cols, x):
+    """csrc/tell_spmv.cu in numpy: block b of BLOCK_THREADS threads owns
+    rows [B b, B b + B), one a thread (threads past n return); each row
+    starts its sum with slot 0's product and adds the other slots' in
+    order, every product and sum rounded on its own (numpy's elementwise
+    arithmetic in the value type contracts nothing into an FMA)."""
+    K, n = data.shape
+    B = tell.BLOCK_THREADS
+    y = np.empty(n, dtype=data.dtype)
+    for b0 in range(0, n, B):
+        rows = np.arange(b0, min(b0 + B, n))
+        acc = data[0, rows] * x[cols[0, rows]]
+        for k in range(1, K):
+            acc = acc + data[k, rows] * x[cols[k, rows]]
+        y[rows] = acc
+    return y
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["adv64", "random_band", "wide"])
+def test_tell_kernel_emulation_and_reference(case, dtype):
+    """The TELL kernel's arithmetic, emulated, gives the plain version's
+    bits (the card test holds the kernel itself to them), and both agree
+    with the JAX package's TELL product to rounding."""
+    from pflare_tpu.sparse import TELL as JTELL
+
+    if case == "wide":
+        A = sp.random(700, 500, density=0.05, random_state=3, format="csr")
+        x = np.random.default_rng(3).standard_normal(500)
+    else:
+        A, x = BAND_CASES[case]()
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    M = TELL.from_scipy(A, dtype=tdt)
+    xt = torch.from_numpy(x.astype(dtype))
+    y = M.matvec(xt).numpy()
+    np.testing.assert_array_equal(
+        _emulate_tell_kernel(M.data.numpy(), M.cols.numpy(), xt.numpy()), y)
+    J = JTELL.from_scipy(A, dtype=dtype)
+    y_ref = np.asarray(J.matvec(jnp.asarray(x.astype(dtype))))
+    tol = 1e-6 if dtype == np.float32 else 1e-14
+    assert np.abs(y - y_ref).max() <= tol * np.abs(y_ref).max()
 
 
 def test_make_op_picks_by_structure():
