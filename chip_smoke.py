@@ -19,7 +19,11 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
    ``measure``);
 5. ``solve_device(b, max_it=10, ksp="richardson")`` with every kernel
    launch counter at 0 before it: convergence to rtol 1e-5, the true
-   residual against scipy, and both kernels launched;
+   residual against scipy, and every kernel launched; then the same solve
+   eagerly with each TELL and ELL product counted (``gather_routes``):
+   the gather kernel ``csrc/sell_spmv.cu`` launched once a product for
+   the TELL operators and for the coarse inverse's ELL, as many times in
+   all as the counted solve;
 6. the f64 parity configuration at 512^2: full depth, right GMRES from
    x0 = 1 with a zero RHS, rtol 1e-10, <= 6 iterations, by the default
    (stationary) GMRES and by the host-driven one (``eager=True``), twice
@@ -28,7 +32,7 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
    first), each solve's seconds and host reads (counted by the solvers);
 7. the main path at 2048^2, with 10 levels so that its coarsest grid
    stays near the 512^2 path's size, with the launch counters at 0
-   before it and both kernels launched; right GMRES to rtol 1e-5 by
+   before it and every kernel launched, and phase 5's ``gather_routes``; right GMRES to rtol 1e-5 by
    both GMRES paths as in phase 6, with the counters at 0 before each:
    equal iterations, the true residual by scipy <= 1e-4, both kernels
    launched; then, after every timed solve, one more 512^2 and one more
@@ -191,8 +195,8 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     hierarchy's level-0 A and level-1 P; the other twins at their JAX
     examples' own sizes; one line per twin with its seconds, iterations
     and its example's own rule (``_twin_rule``);
-17. the one-program solve (``PCAIR(jit=)``: CUDA graphs, and the TELL
-    kernel ``csrc/tell_spmv.cu``), run after phase 16 on phase 5's 512^2
+17. the one-program solve (``PCAIR(jit=)``: CUDA graphs, and the gather
+    kernel ``csrc/sell_spmv.cu``), run after phase 16 on phase 5's 512^2
     and phase 7's 2048^2 f32 PCAIRs, kept until then: (a) ``jit=True``
     against ``jit=False`` on each, every run warm and with the launch
     counters at 0 before it: ``apply`` equal bit for bit (and a second
@@ -208,10 +212,14 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     new values drops the graphs, and the replayed solve then equals the
     eager solve on the new operators bit for bit; (c) phase 15 (b)'s
     4-shard ``solve_device`` through its graph against eager: x, norms,
-    launches and the mesh's exchange log equal; (d) the TELL kernel
-    against its plain version, bit for bit in f32 and f64, on every TELL
-    operator of the 512^2 and 2048^2 hierarchies, and ``measure`` on the
-    widest at each size; (e) a capture that reads the host raises.  In
+    launches and the mesh's exchange log equal; (d) the gather kernel
+    against its plain version (``sell_spmv_plain`` over the packed copy),
+    bit for bit in f32 and f64, and within 1e-6 (f32) or 1e-14 (f64) of
+    max |y| of the container's own plain product, on every TELL operator
+    and the coarse inverse's ELL of the 512^2 and 2048^2 hierarchies; the
+    bytes of their packed copies and indexes; ``measure`` on the widest
+    TELL and on the coarse ELL at each size; (e) a capture that reads the
+    host raises.  In
     (a)-(c) every captured program's graph is read back
     (``graph_launches``): the kernel nodes of each of our kernels in it,
     which each replay launches, must equal what a replay adds to the
@@ -245,8 +253,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DIA_SITES = {"aligned": "pflare_tpu/sparse/dia.py:311",
              "padded": "pflare_tpu/sparse/dia.py:367"}
 BANDED_SITE = "pflare_tpu/sparse/banded.py:238"
-# not a Pallas site: the slot loop the reference's jitted solve fuses
-TELL_SITE = "pflare_tpu/sparse/ell.py:217"
+# not a Pallas site: the TELL slot loop the reference's jitted solve fuses
+# (and the ELL gather and row sum at pflare_tpu/sparse/ell.py:98)
+GATHER_SITE = "pflare_tpu/sparse/ell.py:217"
 TOL = {"float32": 1e-6, "float64": 1e-13}
 HISTORY_RTOL = 1e-8  # phase 9 (a): card against CPU residual histories
 R = 50               # calls captured in one CUDA graph
@@ -346,7 +355,7 @@ def profiled(torch, fn, label):
         device_sync_read(*(out if isinstance(out, tuple) else [
             out if torch.is_tensor(out) else out.x]))
         wall = time.perf_counter() - t0
-    found = {"dia": [0, 0.0], "banded": [0, 0.0], "tell": [0, 0.0]}
+    found = {"dia": [0, 0.0], "banded": [0, 0.0], "sell": [0, 0.0]}
     busy_us = 0.0
     ops = []
     for evt in prof.key_averages():
@@ -382,7 +391,7 @@ def gmres_paths(pcx, b, **kw):
     from pflare_tpu_torch.solvers import jitted, krylov
     from pflare_tpu_torch.sparse import banded as tbanded
     from pflare_tpu_torch.sparse import dia as tdia
-    from pflare_tpu_torch.sparse import ell as tell
+    from pflare_tpu_torch.sparse import ell as sell
     from pflare_tpu_torch.utils.timers import device_sync_read
 
     out, seconds = {}, {}
@@ -390,7 +399,7 @@ def gmres_paths(pcx, b, **kw):
     for path, is_eager, solver in (stationary, eager, eager, stationary):
         tdia.KERNEL_LAUNCHES = 0
         tbanded.KERNEL_LAUNCHES = 0
-        tell.KERNEL_LAUNCHES = 0
+        sell.KERNEL_LAUNCHES = 0
         reads = solver.HOST_READS
         t0 = time.perf_counter()
         res = pcx.solve(b, eager=is_eager, **kw)
@@ -400,7 +409,7 @@ def gmres_paths(pcx, b, **kw):
                      solver.HOST_READS - reads,
                      {"dia": tdia.KERNEL_LAUNCHES,
                       "banded": tbanded.KERNEL_LAUNCHES,
-                      "tell": tell.KERNEL_LAUNCHES})
+                      "sell": sell.KERNEL_LAUNCHES})
     return out
 
 
@@ -452,10 +461,10 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import pflare_tpu_torch as tpf
     from pflare_tpu_torch import cuda, native
-    from pflare_tpu_torch.sparse import DIA, TELL, BandedSpMV
+    from pflare_tpu_torch.sparse import DIA, ELL, TELL, BandedSpMV
     from pflare_tpu_torch.sparse import banded as tbanded
     from pflare_tpu_torch.sparse import dia as tdia
-    from pflare_tpu_torch.sparse import ell as tell
+    from pflare_tpu_torch.sparse import ell as sell
     from pflare_tpu_torch.utils import graphs
     from pflare_tpu_torch.utils.timers import (device_sync_read, get_timers,
                                                reset_timers)
@@ -505,7 +514,7 @@ def main() -> int:
 
     # ~~~~~~~~~~ 4. kernels against their plain versions ~~~~~~~~~~
     rng = np.random.default_rng(0)
-    err = {"aligned": 0.0, "padded": 0.0, "banded": 0.0, "tell": 0.0}
+    err = {"aligned": 0.0, "padded": 0.0, "banded": 0.0, "sell": 0.0}
 
     def check(op, group, label):
         """Kernel vs plain on one operator, in f32 and f64."""
@@ -564,8 +573,8 @@ def main() -> int:
         if isinstance(M, DIA):
             return tdia.dia_spmv_plain(M.data, M.offsets, x, *M.shape,
                                        M.col_base)
-        if isinstance(M, TELL):
-            return tell.tell_spmv_plain(M.data, M.cols, x)
+        if isinstance(M, (TELL, ELL)):
+            return sell.sell_spmv_plain(M.packed, x)
         return tbanded.banded_spmv_plain(M.data, M.lcols, x, M.n, M.w, M.W,
                                          M.col_base)
 
@@ -574,8 +583,8 @@ def main() -> int:
         data = M.data.to(dtype or M.dtype, copy=True)
         if isinstance(M, DIA):
             return DIA(M.offsets, data, M.shape, M.col_base)
-        if isinstance(M, TELL):
-            return TELL(M.pattern, data, M.cols.clone())
+        if isinstance(M, (TELL, ELL)):
+            return type(M)(M.pattern, data, M.cols.clone())
         return BandedSpMV(data, M.lcols.clone(), M.n, M.n_cols, M.w, M.W,
                           M.col_base)
 
@@ -587,17 +596,19 @@ def main() -> int:
         the L2, so the operator comes from device memory, as in a
         V-cycle, while x stays in L2, as it does there.  The bound is the
         larger of bytes = nonzeros * (sizeof T + index bytes, 4 for
-        banded and TELL, 0 for DIA) + (x entries read + n) * sizeof T over
-        3.35 TB/s and 2 FLOPs per nonzero over 67 TFLOP/s: what this
+        banded, TELL and ELL, 0 for DIA) + (x entries read + n) * sizeof T
+        over 3.35 TB/s and 2 FLOPs per nonzero over 67 TFLOP/s: what this
         operator's product needs, not what its layout stores (padded
         slots hold 0 and add nothing).  The x entries read are the
-        columns that hold a nonzero."""
+        columns that hold a nonzero.  A gather operator's plain version
+        is ``sell_spmv_plain`` over its packed copy."""
         host = op.to_scipy()
         n, n_cols = op.shape
         T = op.data.element_size()
         banded = isinstance(op, BandedSpMV)
-        gather = isinstance(op, TELL)
-        op_bytes = op.data.numel() * (T + (4 if banded or gather else 0))
+        gather = isinstance(op, (TELL, ELL))
+        op_bytes = (op.packed.nbytes if gather else
+                    op.data.numel() * (T + (4 if banded else 0)))
         copies = min(R, max(1, math.ceil(2 * L2_BYTES / op_bytes)))
         mats = [op] + [copy_op(op) for _ in range(copies - 1)]
         csrs = [torch.sparse_csr_tensor(
@@ -618,7 +629,7 @@ def main() -> int:
             tells = [TELL.from_scipy(host, dtype=op.dtype).to(dev)
                      for _ in range(copies)]
             tell_ms = graph_ms(torch, [
-                lambda M=M: tell.tell_spmv_plain(M.data, M.cols, x)
+                lambda M=M: sell.tell_spmv_plain(M.data, M.cols, x)
                 for M in tells])
         index = 4 if banded or gather else 0
         x_read = int(np.count_nonzero(np.bincount(host.indices,
@@ -626,10 +637,17 @@ def main() -> int:
         t_bytes = ((host.nnz * (T + index) + (n + x_read) * T)
                    / HBM_BYTES_S * 1e3)
         t_ops = 2 * host.nnz / FP32_FLOPS * 1e3
+        if gather:
+            stored = (f"{op.data.numel()} slots, packed in "
+                      f"{op.packed.data.numel()} at {op.packed.lanes} lanes "
+                      "a row")
+        else:
+            stored = f"{op.data.numel()} slots"
         row = {
-            "shape": f"{label}: {n} x {n_cols}, K={op.data.shape[0]}"
+            "shape": f"{label}: {type(op).__name__} {n} x {n_cols}, "
+                     f"K={op.pattern.K if gather else op.data.shape[0]}"
                      + (f", W={op.W}" if banded else "")
-                     + f", {host.nnz} nonzeros in {op.data.numel()} slots",
+                     + f", {host.nnz} nonzeros in {stored}",
             "ms": min(k1, k2), "plain_ms": min(p1, p2),
             "library_ms": min(l1, l2),
             "bound_ms": max(t_bytes, t_ops),
@@ -707,22 +725,25 @@ def main() -> int:
             A500, dtype=torch.float32).to(dev))],
         "banded": [measure("512^2 " + label, op)
                    for label, op in banded_targets(dh)],
+        "sell": [],     # phase 17 (d)
     }
 
     # ~~~~~~~~~~ 5. the main path's solve at 512^2 ~~~~~~~~~~
     b = np.random.default_rng(1).standard_normal(A512.shape[0])
     tdia.KERNEL_LAUNCHES = 0
     tbanded.KERNEL_LAUNCHES = 0
-    tell.KERNEL_LAUNCHES = 0
+    sell.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     x, norms = pc.solve_device(b, max_it=10, ksp="richardson")
     device_sync_read(x, norms)
     t_solve = time.perf_counter() - t0
     norms = norms.cpu().numpy()
     launches = {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES,
-                "tell": tell.KERNEL_LAUNCHES}
+                "sell": sell.KERNEL_LAUNCHES}
     print(f"# 512^2 f32 solve_device: {t_solve:.4f} s to completion "
           f"(first call: run, then captured), launches {launches}")
+    routes = {"512": gather_routes(torch, pc, b, sell, launches["sell"],
+                                   "512^2")}
     require(min(launches.values()) > 0,
             f"a kernel of the path was not launched: {launches}")
     its = _converged_at(np, norms, 1e-5)
@@ -792,7 +813,7 @@ def main() -> int:
     solve_s = []
     tdia.KERNEL_LAUNCHES = 0
     tbanded.KERNEL_LAUNCHES = 0
-    tell.KERNEL_LAUNCHES = 0
+    sell.KERNEL_LAUNCHES = 0
     for _ in range(2):
         t0 = time.perf_counter()
         x2k, n2k = pc2k.solve_device(b2k, max_it=10, ksp="richardson")
@@ -801,7 +822,7 @@ def main() -> int:
         if len(solve_s) == 1:   # the counts of the first solve alone
             launches2k = {"dia": tdia.KERNEL_LAUNCHES,
                           "banded": tbanded.KERNEL_LAUNCHES,
-                          "tell": tell.KERNEL_LAUNCHES}
+                          "sell": sell.KERNEL_LAUNCHES}
     n2k = n2k.cpu().numpy()
     its2k = _converged_at(np, n2k, 1e-5)
     true2k = float(np.linalg.norm(A2k @ x2k.double().cpu().numpy() - b2k)
@@ -815,6 +836,8 @@ def main() -> int:
             "2048^2 Richardson did not converge")
     require(min(launches2k.values()) > 0,
             f"a kernel of the 2048^2 path was not launched: {launches2k}")
+    routes["2048"] = gather_routes(torch, pc2k, b2k, sell,
+                                   launches2k["sell"], "2048^2")
     host2k = {"setup": t_setup2k, "upload": t_upload2k,
               "n_levels": pc2k.n_levels,
               "levels": [(lv.n, len(lv.fine)) for lv in pc2k.hierarchy.levels]}
@@ -926,7 +949,7 @@ def main() -> int:
 
     # ~~~~~~~~~~ 17. the one-program solve ~~~~~~~~~~
     one_program, t_phase17 = phase17(
-        np, torch, tdia, tbanded, tell, dev,
+        np, torch, tdia, tbanded, sell, dev,
         [("512^2", pc, b, A512), ("2048^2", pc2k, b2k, A2k)],
         (pc64, A512), mesh4, install_check, measure, profile_solve,
         plain_matvec, err, timed)
@@ -984,21 +1007,22 @@ def main() -> int:
                       for name, run in twin_runs.items()},
             "timings": timed[group]})
     kernels.append({
-        "name": "tell_spmv", "route": "cuda",
-        "source": "pflare_tpu_torch/csrc/tell_spmv.cu",
-        "replaces": TELL_SITE, "launches": launches["tell"],
-        "launches_2048": launches2k["tell"],
-        "launches_per_iteration": launches2k["tell"] / 10,
-        "launches_per_iteration_512": launches["tell"] / 10,
-        "max_abs_err": err["tell"],
-        **{k: timed["tell"][0][k] for k in (
+        "name": "sell_spmv", "route": "cuda",
+        "source": "pflare_tpu_torch/csrc/sell_spmv.cu",
+        "replaces": GATHER_SITE, "launches": launches["sell"],
+        "launches_2048": launches2k["sell"],
+        "launches_per_iteration": launches2k["sell"] / 10,
+        "launches_per_iteration_512": launches["sell"] / 10,
+        "launches_by_container": routes,
+        "max_abs_err": err["sell"],
+        **{k: timed["sell"][0][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-        "solve_us_per_call_512": us_512["tell"],
-        "solve_us_per_call_2048": us_2048["tell"],
+        "solve_us_per_call_512": us_512["sell"],
+        "solve_us_per_call_2048": us_2048["sell"],
         "launch_floor_ms": floor_ms,
         "one_program": one_program,
-        "timings": timed["tell"]})
+        "timings": timed["sell"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1914,6 +1938,54 @@ def graph_launches(pcx, label):
     print(f"# {label}: the graphs of {len(pcx._programs)} programs launch "
           f"what their replays count: {total} kernel nodes", flush=True)
     return total
+
+
+def gather_routes(torch, pcx, bx, sell, launched, label):
+    """The gather kernel's launches by container in one eager
+    (``jit=False``) ``solve_device`` of 10 Richardson its: each TELL and
+    ELL of the device form has its ``matvec`` wrapped for the run, and
+    each call must launch the kernel exactly once (so the coarse ELL runs
+    no index_select gather and row sum).  Both containers must launch it,
+    and together as often as the counted solve before (``launched``).
+    Returns {"TELL": launches an iteration, "ELL": ...}."""
+    from pflare_tpu_torch.sparse import ELL, TELL
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    calls = {"TELL": 0, "ELL": 0}
+    wrapped = []
+
+    def wrap(op):
+        inner = op.matvec
+
+        def matvec(x):
+            before = sell.KERNEL_LAUNCHES
+            y = inner(x)
+            require(sell.KERNEL_LAUNCHES == before + 1,
+                    f"{label}: a {type(op).__name__} product launched "
+                    f"{sell.KERNEL_LAUNCHES - before} gather kernels")
+            calls[type(op).__name__] += 1
+            return y
+
+        op.matvec = matvec
+        wrapped.append(op)
+
+    for _, op in _device_ops(pcx.upload()):
+        if isinstance(op, (TELL, ELL)):
+            wrap(op)
+    pcx.jit = False
+    try:
+        device_sync_read(*pcx.solve_device(bx, max_it=10, ksp="richardson"))
+    finally:
+        pcx.jit = True
+        for op in wrapped:
+            del op.matvec
+    require(min(calls.values()) > 0 and sum(calls.values()) == launched,
+            f"{label}: gather kernel launches by container {calls}, "
+            f"{launched} counted in the solve before")
+    print(f"# {label} solve_device: the gather kernel launched "
+          f"{calls['TELL'] / 10:.1f} times an iteration for TELL operators "
+          f"and {calls['ELL'] / 10:.1f} for the coarse ELL", flush=True)
+    return {k: v / 10 for k, v in calls.items()}
 
 
 def install_replay(np, torch, pc, plan, A_old, b, norms_old):
@@ -3184,14 +3256,14 @@ def _device_ops(dh):
     return ops
 
 
-def phase17(np, torch, tdia, tbanded, tell, dev, cases, parity, mesh,
+def phase17(np, torch, tdia, tbanded, sell, dev, cases, parity, mesh,
             install_check, measure, profile_solve, plain_matvec, err, timed):
     """The one-program solve (see the module docstring, phase 17).
     ``cases``: (label, PCAIR, b, A) of the 512^2 and 2048^2 f32 main
     path; ``parity``: phase 6's f64 PCAIR and matrix; ``mesh``: phase 15
     (b)'s.  Returns ({label: numbers}, seconds)."""
     from pflare_tpu_torch.solvers.jitted import gmres_stationary
-    from pflare_tpu_torch.sparse import TELL
+    from pflare_tpu_torch.sparse import ELL, TELL
     from pflare_tpu_torch.utils import graphs
     from pflare_tpu_torch.utils.timers import device_sync_read
 
@@ -3199,14 +3271,14 @@ def phase17(np, torch, tdia, tbanded, tell, dev, cases, parity, mesh,
 
     def counts():
         return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES,
-                "tell": tell.KERNEL_LAUNCHES}
+                "sell": sell.KERNEL_LAUNCHES}
 
     def run(pcx, jit, fn):
         """``fn()`` with ``pcx.jit`` set and the counters at 0: (its
         output, seconds to completion, launches)."""
         pcx.jit = jit
         tdia.KERNEL_LAUNCHES = tbanded.KERNEL_LAUNCHES = 0
-        tell.KERNEL_LAUNCHES = 0
+        sell.KERNEL_LAUNCHES = 0
         t0 = time.perf_counter()
         out = fn()
         device_sync_read(*(out if isinstance(out, tuple)
@@ -3381,31 +3453,73 @@ def phase17(np, torch, tdia, tbanded, tell, dev, cases, parity, mesh,
           f"{out['mesh']['graph_s']:.4f} s, eager "
           f"{out['mesh']['eager_s']:.4f} s", flush=True)
 
-    # (d) the TELL kernel against its plain version, bit for bit
-    tell_rows = []
+    # (d) the gather kernel against its plain version, bit for bit, on
+    # every TELL and the coarse ELL
     for label, pcx, _, _ in cases:
-        tells = [(lab, op) for lab, op in _device_ops(pcx.upload())
-                 if isinstance(op, TELL)]
-        require(tells, f"phase 17 {label}: the hierarchy has no TELL")
+        dh = pcx.upload()
+        gathers = [(lab, op) for lab, op in _device_ops(dh)
+                   if isinstance(op, (TELL, ELL))]
+        tells = [(lab, op) for lab, op in gathers if isinstance(op, TELL)]
+        require(tells and isinstance(dh.coarse_inv.mat, ELL),
+                f"phase 17 {label}: the hierarchy has no TELL or no coarse "
+                "ELL")
         rng = np.random.default_rng(5)
-        for lab, op in tells:
+        for lab, op in gathers:
             for dtype in (torch.float32, torch.float64):
-                M = TELL(op.pattern, op.data.to(dtype), op.cols)
+                M = type(op)(op.pattern, op.data.to(dtype), op.cols)
                 x = torch.as_tensor(rng.standard_normal(op.shape[1]),
                                     dtype=dtype, device=dev)
                 y, ref = M.matvec(x), plain_matvec(M, x)
+                # the container's own product as the CPU runs it (the
+                # slot loop, or the gather and row sum): its sum order
+                # differs from the kernel's where a row has several lanes
+                own = (sell.tell_spmv_plain(M.data, M.cols, x)
+                       if isinstance(M, TELL) else
+                       (M.data * x[M.cols.long()]).sum(dim=1))
                 torch.cuda.synchronize()
                 require(torch.equal(y, ref), f"phase 17 {label} {lab} "
-                        f"{dtype}: the TELL kernel differs from its plain "
+                        f"{dtype}: the gather kernel differs from its plain "
                         f"version by {float((y - ref).abs().max()):.3e}")
-                err["tell"] = max(err["tell"], float((y - ref).abs().max()))
-        print(f"# phase 17 {label}: TELL kernel equals its plain version "
-              f"bit for bit in f32 and f64 on {len(tells)} operators: "
-              + ", ".join(f"{lab} {op.shape[0]} rows K={op.data.shape[0]}"
-                          for lab, op in tells), flush=True)
+                gap = float((y - own).abs().max() / own.abs().max())
+                require(gap <= {torch.float32: 1e-6,
+                                torch.float64: 1e-14}[dtype],
+                        f"phase 17 {label} {lab} {dtype}: the kernel is "
+                        f"{gap:.3e} of max |y| from the container's plain "
+                        "product")
+                err["sell"] = max(err["sell"], float((y - ref).abs().max()))
+        # the upload's packing, again from the row lengths: each index
+        # built anew on the card (the patterns' caches cleared) and each
+        # container packed by it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _, op in gathers:
+            op.pattern._packs.clear()
+            sell.pack(op)
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter() - t0
+        packed = sum(op.packed.nbytes for _, op in gathers)
+        index = sum(op.packed.index.nbytes for _, op in gathers)
+        stored = sum(op.data.numel() * (op.data.element_size() + 4)
+                     for _, op in gathers)
+        nnz = sum(op.nnz for _, op in gathers)
+        out[f"{label} packed"] = {"operators": len(gathers),
+                                  "nonzeros": nnz, "packed_bytes": packed,
+                                  "index_bytes": index,
+                                  "stored_bytes": stored,
+                                  "index_and_pack_s": t_pack}
+        print(f"# phase 17 {label}: the gather kernel equals its plain "
+              f"version bit for bit in f32 and f64 on {len(gathers)} "
+              "operators: " + ", ".join(
+                  f"{lab} {type(op).__name__} {op.shape[0]} rows "
+                  f"K={op.pattern.K} L={op.packed.lanes}"
+                  for lab, op in gathers)
+              + f"; packed copies {packed} B (index {index} B) for {nnz} "
+              f"nonzeros, beside {stored} B of padded tensors; every index "
+              f"built and copy packed again in {t_pack:.4f} s", flush=True)
         lab, op = max(tells, key=lambda lo: lo[1].data.numel())
-        tell_rows.insert(0, measure(f"{label} {lab}", op))
-    timed["tell"] = tell_rows
+        timed["sell"][:0] = [measure(f"{label} {lab}", op),
+                             measure(f"{label} coarse inverse",
+                                     dh.coarse_inv.mat)]
 
     # (e) a capture that fails raises, with no eager fallback
     prog = graphs.Programs(dev).get(None, ("sync",),

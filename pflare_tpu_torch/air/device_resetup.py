@@ -63,7 +63,7 @@ from ..params import InverseType, ZType, tolerances
 from ..sparse.banded import BandedSpMV
 from ..sparse.dia import DIA
 from ..sparse.dtypes import numpy_dtype
-from ..sparse.ell import ELL
+from ..sparse.ell import ELL, sell_index
 from ..sparse.pattern import SparsityPattern
 from ..sparse.spgemm import (FixedSparsityPolyPlan, build_spgemm_plan,
                              index_tensor, ordered_dot, ordered_sum,
@@ -188,6 +188,10 @@ class _Layout:
             self._make = lambda data: BandedSpMV(data, lcols, n, n_cols, w, W)
         else:
             cls, pattern, cols = type(t), t.pattern, up(t.cols, torch.int32)
+            if cols.is_cuda:
+                # the packed copy's index goes to the card now, so that
+                # an install packs with no host copy (no synchronisation)
+                sell_index(t, device=cols.device)
             self._make = lambda data: cls(pattern, data, cols)
 
     def __call__(self, vals):

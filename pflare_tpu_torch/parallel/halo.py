@@ -15,10 +15,11 @@ the container the serial operator uses (``air/fullspace.py::make_op``'s
 choice): a DIA or banded block with its own offsets or bandwidth and a
 column base (the shard's extended window starts ``w`` entries before its
 own block), so the DIA and banded kernels run once per active shard, on
-the shard's rows.  The gather containers (TELL, ELL, DELL) are plain
-PyTorch, whose small gathers cost a launch each whatever their length,
-so the shards' blocks stack into one container over the shards' windows
-laid end to end: one gather a slot for the whole mesh.
+the shard's rows.  The gather containers (TELL, ELL, DELL) read x at
+any column, and each product costs a launch (TELL and ELL: the gather
+kernel; DELL: PyTorch's gather and row sum) whatever its length, so the
+shards' blocks stack into one container over the shards' windows laid
+end to end: one product for the whole mesh.
 ``RowShardedOp`` is the fallback when the band check fails: each shard
 reads the all-gathered vector, at column base ``s * w``.  ``from_scipy``
 cuts the blocks from a host matrix; ``from_op`` cuts the same blocks
@@ -67,7 +68,7 @@ def _not_banded():
         "shards)")
 
 
-# containers whose product is a plain PyTorch gather: the shards' blocks
+# containers whose product gathers x at any column: the shards' blocks
 # stack into one (see the module docstring)
 GATHER_KINDS = ("tell", "ell", "dell")
 

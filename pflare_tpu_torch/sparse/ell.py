@@ -1,14 +1,27 @@
-"""Padded-ELL sparse matrices with plain PyTorch matvecs.
+"""Padded-ELL sparse matrices and the sliced gather SpMV.
 
 ``ELL`` keeps values and columns as ``[n_rows, K]``; ``TELL`` as
 ``[K, n_rows]``, the layout of the solve-phase operators that are neither
-DIA nor banded: slot k of every row is one contiguous row of the tensor,
-so each slot row is one coalesced stream.  The reference computes its
-product with XLA, not Pallas, and fuses the slot loop inside its jitted
-solve; here, on a CUDA tensor, ``TELL.matvec`` launches the hand-written
-kernel ``csrc/tell_spmv.cu`` (one launch for all K slots), and on a CPU
-tensor it runs ``tell_spmv_plain``, the slot loop of gathers, multiplies
-and adds.  Padded slots hold value 0 and column 0, so they add nothing.
+DIA nor banded: slot k of every row is one contiguous row of the tensor.
+Padded slots hold value 0 and column 0, so they add nothing.  The
+reference computes both products with XLA, not Pallas
+(pflare_tpu/sparse/ell.py:98-101, 217-223).
+
+On a CUDA device each container also carries a packed copy of itself
+(``Sell``, ``pack``): its rows sorted stably by length, longest first,
+cut into slices of 32 / L rows (L lanes a row, ``choose_lanes``), each
+slice padded only to its own longest row and stored step-major, so that a
+warp reads 32 neighbouring slots at every step.  The packing index
+(``SellIndex``: slice offsets, the original row of each packed row, and
+each packed slot's flat position in the container's own storage) is built
+once per pattern and storage layout on the host (``sell_index``, cached
+on the ``SparsityPattern``), goes to each device once, and makes the
+packed copy with one gather; the container's own tensors stay as they
+are.  ``TELL.matvec`` and ``ELL.matvec`` launch the hand-written kernel
+``csrc/sell_spmv.cu`` on a CUDA tensor, and on a CPU tensor run their
+plain versions (``tell_spmv_plain``, the slot loop; ELL's gather and row
+sum).  ``sell_spmv_plain`` walks the packed layout in the kernel's order
+and is what the card holds the kernel to, bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +31,7 @@ import sys
 import numpy as np
 import scipy.sparse as sp
 import torch
+import torch.nn.functional as F
 
 from .. import cuda
 from ..utils import graphs
@@ -25,9 +39,20 @@ from .pattern import SparsityPattern
 from .dtypes import numpy_dtype
 from .spgemm import segment_sum
 
-KERNEL_LAUNCHES = 0  # launches of csrc/tell_spmv.cu since the last reset
-graphs.count_launches(sys.modules[__name__], "tell_spmv_kernel")
-BLOCK_THREADS = 256  # csrc/tell_spmv.cu's kThreads: one row a thread
+KERNEL_LAUNCHES = 0  # launches of csrc/sell_spmv.cu since the last reset
+graphs.count_launches(sys.modules[__name__], "sell_spmv_kernel")
+WARP = 32            # threads of a warp: one slice a warp
+BLOCK_THREADS = 256  # csrc/sell_spmv.cu's kThreads: eight slices a block
+LANES = (1, 2, 4, 8, 16, 32)
+# choose_lanes: a row takes more lanes while each lane keeps this many
+# slots of a mean row, or, keeping one, while the operator makes fewer
+# warps than half of what an H100 holds at once (132 SMs x 64 warps / 2)
+SLOTS_PER_LANE = 8
+MIN_WARPS = 4224
+# rows are sorted by length within runs of this many rows (SELL-C-sigma's
+# sigma): a warp's rows stay near each other, so its gathers of x and
+# writes of y share sectors (tools/torch_sell_lanes.py, PERF.md)
+SORT_WINDOW = 512
 
 
 def tell_spmv_plain(data, cols, x):
@@ -43,42 +68,250 @@ def tell_spmv_plain(data, cols, x):
     return y
 
 
-def tell_spmv_cuda(data, cols, x):
-    """Launch ``csrc/tell_spmv.cu`` on PyTorch's current stream (no
-    synchronisation): ``data`` ``[K, n]`` float32/float64 and ``cols``
-    ``[K, n]`` int32, both contiguous, every column inside x."""
+def choose_lanes(nnz: int, n_rows: int) -> int:
+    """Lanes a row for an operator of ``nnz`` nonzeros in ``n_rows`` rows:
+    the most, up to 32, that leave each lane ``SLOTS_PER_LANE`` slots of a
+    mean row, then doubled, while each lane keeps a slot of a mean row,
+    as long as the operator makes fewer than ``MIN_WARPS`` warps (one a
+    slice of 32 / L rows), so that few rows still have enough gathers in
+    flight.  The large R, A_ff and A_fc take one lane, the coarse
+    inverse's long rows 8-16."""
+    mean = nnz / max(n_rows, 1)
+    lanes = 1
+    while lanes < LANES[-1] and (
+            2 * lanes * SLOTS_PER_LANE <= mean
+            or (2 * lanes <= mean and n_rows * lanes < MIN_WARPS * WARP)):
+        lanes *= 2
+    return lanes
+
+
+class SellIndex:
+    """The packing index of one pattern in one storage layout, on one
+    device: ``slice_ptr`` [n_slices + 1] int64, the offsets of the slices
+    in the packed arrays (multiples of 32); ``row_of`` [n_slices * 32 / L]
+    int32, the original row of each packed row (-1 past the last row);
+    ``steps`` [n_slices] int64, each slice's 32-slot steps; ``src`` [P],
+    each packed slot's flat position in the container's storage, -1 for a
+    pad (int32 where every position fits, else int64).  Within slice s,
+    packed slot ``slice_ptr[s] + 32 t + l (32 / L) + r`` is slot ``t L +
+    l`` of packed row ``s (32 / L) + r``.  The rows are sorted by length,
+    longest first and stably, within each run of ``window`` rows (a
+    multiple of 32), or over all n rows for ``None`` (SELL-C-sigma's
+    sigma; tools/torch_sell_lanes.py times both).
+
+    Built with torch ops on the device of ``row_len`` (the pattern's row
+    lengths, int64, none above ``width``), with one read of the packed
+    size: the same index built by numpy on the host of an H100 machine
+    took about 12 s for the 2048^2 hierarchy's 122M nonzeros (PERF.md)."""
+
+    def __init__(self, row_len, width: int, lanes: int, row_stride: int,
+                 slot_stride: int, window: int | None = SORT_WINDOW):
+        dev = row_len.device
+        n = row_len.shape[0]
+        rows_per = WARP // lanes
+        if window is None:
+            run = torch.zeros(n, dtype=torch.int64, device=dev)
+        else:
+            if window <= 0 or window % WARP:
+                raise ValueError(f"sort window {window}: a positive "
+                                 f"multiple of {WARP}")
+            run = torch.div(torch.arange(n, device=dev), window,
+                            rounding_mode="floor")
+        order = torch.sort(run * (width + 1) + (width - row_len),
+                           stable=True).indices
+        n_slices = -(-n // rows_per)
+        pad = n_slices * rows_per - n
+        rows = F.pad(order, (0, pad), value=-1)
+        lens = F.pad(row_len[order], (0, pad))
+        # the first row of a slice is its longest
+        self.steps = torch.div(lens[::rows_per] + lanes - 1, lanes,
+                               rounding_mode="floor")
+        self.slice_ptr = F.pad(torch.cumsum(self.steps * WARP, 0), (1, 0))
+        blocks, self.max_steps = (
+            torch.stack([self.steps.sum(), self.steps.max()]).tolist()
+            if n_slices else (0, 0))
+        slice_of = torch.repeat_interleave(
+            torch.arange(n_slices, device=dev), self.steps,
+            output_size=blocks)
+        step = torch.arange(blocks, device=dev) - torch.repeat_interleave(
+            torch.div(self.slice_ptr[:-1], WARP, rounding_mode="floor"),
+            self.steps, output_size=blocks)
+        lane = torch.arange(WARP, device=dev)
+        sub = lane % rows_per
+        row = rows.view(n_slices, rows_per)[slice_of][:, sub]
+        slot = step[:, None] * lanes + torch.div(lane, rows_per,
+                                                 rounding_mode="floor")
+        keep = slot < lens.view(n_slices, rows_per)[slice_of][:, sub]
+        src = torch.where(keep, row * row_stride + slot * slot_stride,
+                          -1).reshape(-1)
+        last = (n - 1) * row_stride + (width - 1) * slot_stride
+        self.src = src.to(torch.int32) if last < 2**31 else src
+        self.row_of = rows.to(torch.int32)
+        self.lanes = lanes
+
+    @property
+    def n_slices(self) -> int:
+        return self.steps.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.slice_ptr, self.row_of, self.steps, self.src))
+
+
+def sell_index(M, lanes: int | None = None, device=None,
+               window: int | None = SORT_WINDOW) -> SellIndex:
+    """The packing index of container ``M`` (a TELL or ELL) with ``lanes``
+    lanes a row (``choose_lanes`` by default), on ``device`` (its values'
+    by default), cached on its pattern by storage layout, lanes, device
+    and window: one build for each."""
+    pat = M.pattern
+    if lanes is None:
+        lanes = choose_lanes(pat.nnz, pat.shape[0])
+    if lanes not in LANES:
+        raise ValueError(f"lanes {lanes}: one of {LANES}")
+    device = torch.device(M.data.device if device is None else device)
+    if isinstance(M, TELL):
+        k_store, n_store = M.data.shape
+        strides = (1, n_store)
+    else:
+        n_store, k_store = M.data.shape
+        strides = (k_store, 1)
+    key = (type(M).__name__, tuple(M.data.shape), lanes, str(device),
+           window)
+    index = pat._packs.get(key)
+    if index is None:
+        row_len = np.diff(pat.indptr)
+        if n_store != pat.shape[0] or row_len.max(initial=0) > k_store:
+            raise ValueError(f"{type(M).__name__} storage "
+                             f"{tuple(M.data.shape)} does not hold its "
+                             f"pattern ({pat.shape[0]} rows, K={pat.K})")
+        index = SellIndex(torch.as_tensor(row_len, device=device), k_store,
+                          lanes, *strides, window=window)
+        pat._packs[key] = index
+    return index
+
+
+class Sell:
+    """The packed copy of a TELL or ELL on one device: ``data`` [P] values
+    and ``cols`` [P] int32 columns in ``index``'s order (0 and 0 in
+    pads), with the index's ``slice_ptr``, ``row_of`` and ``steps``."""
+
+    def __init__(self, index: SellIndex, data, cols, shape):
+        self.index = index
+        self.data = data
+        self.cols = cols
+        self.shape = shape
+        self.slice_ptr, self.row_of, self.steps = (
+            index.slice_ptr, index.row_of, index.steps)
+
+    @property
+    def lanes(self) -> int:
+        return self.index.lanes
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the packed values and columns."""
+        return (self.data.numel() * self.data.element_size()
+                + self.cols.numel() * self.cols.element_size())
+
+
+def pack(M, lanes: int | None = None, index: SellIndex | None = None) -> Sell:
+    """The packed copy of container ``M`` on its own device, by ``index``
+    (``sell_index(M, lanes)`` by default): one gather of its values and
+    one of its columns, pads set to 0."""
+    index = index or sell_index(M, lanes)
+    src = index.src
+    if src.device != M.data.device:
+        raise ValueError(f"pack: the index lies on {src.device}, the "
+                         f"values on {M.data.device}")
+    keep, at = src >= 0, src.clamp(min=0)
+    data = torch.where(keep, M.data.reshape(-1).index_select(0, at), 0)
+    cols = torch.where(keep, M.cols.reshape(-1).index_select(0, at), 0)
+    return Sell(index, data, cols, M.shape)
+
+
+def sell_spmv_plain(packed: Sell, x):
+    """Plain PyTorch product over the packed layout, in the kernel's
+    order: each of a slice's 32 threads sums its slots in slot order from
+    0 (one gather, multiply and add a step, kept only in the slices that
+    still have that step), then the lanes of each row combine by the
+    kernel's shuffle tree, and each row's sum goes to its original row."""
+    index = packed.index
+    rows_per = WARP // index.lanes
+    acc = x.new_zeros(index.n_slices, WARP)
+    lane = torch.arange(WARP, device=x.device)
+    last = max(packed.data.shape[0] - 1, 0)
+    for t in range(index.max_steps):
+        p = (packed.slice_ptr[:-1, None] + t * WARP + lane).clamp(max=last)
+        term = packed.data[p] * x.index_select(
+            0, packed.cols[p].reshape(-1)).reshape(p.shape)
+        acc = torch.where(packed.steps[:, None] > t, acc + term, acc)
+    off = WARP // 2
+    while off >= rows_per:
+        acc[:, :off] = acc[:, :off] + acc[:, off:2 * off]
+        off //= 2
+    n = packed.shape[0]
+    out_rows = torch.where(packed.row_of >= 0, packed.row_of,
+                           n).to(torch.int64)
+    y = x.new_zeros(n + 1)
+    y.index_copy_(0, out_rows, acc[:, :rows_per].reshape(-1))
+    return y[:n]
+
+
+def sell_spmv_cuda(packed: Sell, x):
+    """Launch ``csrc/sell_spmv.cu`` on PyTorch's current stream (no
+    synchronisation): ``packed`` a ``Sell`` of float32/float64 values on a
+    CUDA device, ``x`` a contiguous vector of the same dtype there, every
+    column inside x."""
     global KERNEL_LAUNCHES
-    K, n = data.shape
+    if packed is None:
+        raise ValueError("sell_spmv_cuda: the container has no packed copy "
+                         "(its values are not on a CUDA device)")
+    data, cols = packed.data, packed.cols
     if not (data.is_cuda and cols.device == data.device
             and x.device == data.device):
-        raise ValueError("tell_spmv_cuda: tensors must be on one CUDA "
+        raise ValueError("sell_spmv_cuda: tensors must be on one CUDA "
                          "device")
     if data.dtype not in (torch.float32, torch.float64) or x.dtype != data.dtype:
-        raise ValueError(f"tell_spmv_cuda: dtypes {data.dtype}/{x.dtype}; "
+        raise ValueError(f"sell_spmv_cuda: dtypes {data.dtype}/{x.dtype}; "
                          "need float32 or float64, equal")
-    if cols.dtype != torch.int32 or tuple(cols.shape) != (K, n):
-        raise ValueError("tell_spmv_cuda: cols must be int32 [K, n]")
-    if not (data.is_contiguous() and cols.is_contiguous()
-            and x.is_contiguous() and x.dim() == 1):
-        raise ValueError("tell_spmv_cuda: inputs must be contiguous, x 1-D")
-    if K < 1:
-        raise ValueError("tell_spmv_cuda: no slots")
-    y = torch.empty(n, dtype=data.dtype, device=data.device)
-    cuda.launch("tell_spmv", data.dtype, data.data_ptr(), cols.data_ptr(),
-                x.data_ptr(), y.data_ptr(), n, K,
+    if (cols.dtype != torch.int32 or cols.shape != data.shape
+            or not (data.is_contiguous() and cols.is_contiguous())):
+        raise ValueError("sell_spmv_cuda: values and int32 columns must be "
+                         "contiguous, one column a value")
+    if not (x.is_contiguous() and x.dim() == 1
+            and x.shape[0] == packed.shape[1]):
+        raise ValueError(f"sell_spmv_cuda: x must be a contiguous vector of "
+                         f"{packed.shape[1]} entries")
+    y = torch.empty(packed.shape[0], dtype=data.dtype, device=data.device)
+    n_slices = packed.index.n_slices
+    if n_slices == 0:
+        return y
+    cuda.launch("sell_spmv", data.dtype, data.data_ptr(), cols.data_ptr(),
+                packed.slice_ptr.data_ptr(), packed.row_of.data_ptr(),
+                x.data_ptr(), y.data_ptr(), n_slices, packed.lanes,
                 cuda.stream_handle(data.device))
     KERNEL_LAUNCHES += 1
     return y
 
 
+def _packed(M):
+    """The packed copy a container carries: made where its values lie on
+    a CUDA device, none on the CPU (which runs the plain products)."""
+    return pack(M) if M.data.is_cuda else None
+
+
 class ELL:
     """Sparse matrix: static pattern + ``[n_rows, K]`` value and int32
-    column tensors."""
+    column tensors (and, on a CUDA device, their packed copy
+    ``packed``)."""
 
     def __init__(self, pattern: SparsityPattern, data, cols):
         self.pattern = pattern
         self.data = data
         self.cols = cols
+        self.packed = _packed(self)
 
     @property
     def shape(self):
@@ -135,7 +368,10 @@ class ELL:
             shape=self.pattern.shape)
 
     def matvec(self, x):
-        """y = A @ x: one gather + row sums."""
+        """y = A @ x: the kernel on a CUDA tensor; on a CPU one, one gather
+        and row sums."""
+        if x.is_cuda:
+            return sell_spmv_cuda(self.packed, x.contiguous())
         n, K = self.data.shape
         gathered = x.index_select(0, self.cols.reshape(-1)).reshape(n, K)
         return (self.data * gathered).sum(dim=1)
@@ -166,12 +402,14 @@ class ELL:
 
 
 class TELL:
-    """K-transposed padded ELL: ``data``/``cols`` are ``[K, n_rows]``."""
+    """K-transposed padded ELL: ``data``/``cols`` are ``[K, n_rows]`` (and,
+    on a CUDA device, their packed copy ``packed``)."""
 
     def __init__(self, pattern: SparsityPattern, data, cols):
         self.pattern = pattern
         self.data = data
         self.cols = cols
+        self.packed = _packed(self)
 
     @property
     def shape(self):
@@ -246,10 +484,10 @@ class TELL:
             shape=self.pattern.shape)
 
     def matvec(self, x):
-        """y = A @ x, summed in slot order: the kernel on a CUDA tensor,
-        the plain slot loop on a CPU one."""
-        if x.is_cuda and self.data.shape[0]:
-            return tell_spmv_cuda(self.data, self.cols, x.contiguous())
+        """y = A @ x: the kernel on a CUDA tensor, the plain slot loop
+        (summed in slot order) on a CPU one."""
+        if x.is_cuda:
+            return sell_spmv_cuda(self.packed, x.contiguous())
         return tell_spmv_plain(self.data, self.cols, x)
 
     def diagonal(self):

@@ -23,7 +23,7 @@ class SparsityPattern:
     maps each CSR entry position to its flat ELL position row*K + slot.
     """
 
-    __slots__ = ("shape", "nnz", "K", "indptr", "indices", "_ell")
+    __slots__ = ("shape", "nnz", "K", "indptr", "indices", "_ell", "_packs")
 
     def __init__(self, indptr: np.ndarray, indices: np.ndarray, shape):
         self.indptr = np.asarray(indptr, dtype=np.int64)
@@ -32,6 +32,9 @@ class SparsityPattern:
         self.nnz = int(self.indices.shape[0])
         self.K = max(int(np.diff(self.indptr).max(initial=0)), 1)
         self._ell = None
+        # the packed (sliced ELL) indexes of containers on this pattern,
+        # by storage layout and lanes (sparse/ell.py::sell_index)
+        self._packs = {}
 
     def _ell_layout(self):
         """(ell_cols, slot_of_pos), built on first use: the patterns of

@@ -14,8 +14,8 @@ import pflare_tpu_torch as tpf
 from pflare_tpu_torch.sparse import DIA, BandedSpMV
 from pflare_tpu_torch.sparse import banded as tbanded
 from pflare_tpu_torch.sparse import dia as tdia
-from torch_cases import (LEVEL0_OPERATORS, dia_odd_rows, masked_level0,
-                         masked_level1)
+from torch_cases import (LEVEL0_OPERATORS, coarse_ell64, dia_odd_rows,
+                         fullspace_R64, masked_level0, masked_level1)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -561,71 +561,92 @@ def test_ell_transpose_and_flat_values_card_equal_cpu():
         assert torch.equal(M.data.cpu(), cls.from_scipy(A).data)
 
 
-# ~~~~~~~~~~ the TELL kernel and the one-program solve ~~~~~~~~~~
+# ~~~~~~~~~~ the gather kernel and the one-program solve ~~~~~~~~~~
 
-def _tell_cases(rng):
-    """Random [K, n] operators: K = 1, 3, 36 and 112 slots, n not a
-    multiple of the block, more columns than rows and fewer."""
-    out = []
+def _gather_cases():
+    """Host operators for the gather kernel: random ones with 1, 3, 36 and
+    112 slots a row at most, n not a multiple of a slice, more columns
+    than rows and fewer, empty rows; the 64^2 main path's full-space R and
+    coarse ELL; a band with long rows."""
+    rng = np.random.default_rng(12)
+    out = [fullspace_R64(), coarse_ell64(), _random_band(4096, 900, 6)]
     for K, n, n_cols in ((1, 5, 5), (3, 1001, 500), (36, 20_003, 30_000),
                          (112, 70_001, 70_001)):
-        out.append((rng.standard_normal((K, n)),
-                    rng.integers(0, n_cols, (K, n)), n_cols))
+        lens = rng.integers(0, K + 1, n)
+        rows = np.repeat(np.arange(n), lens)
+        cols = np.concatenate([rng.choice(n_cols, k, replace=False)
+                               for k in lens])
+        out.append(sp.csr_matrix((rng.standard_normal(rows.size),
+                                  (rows, cols)), shape=(n, n_cols)))
     return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_tell_kernel_equals_plain_on_card(dtype):
-    """The TELL kernel sums in slot order with the product and sum rounded
-    apart, so it gives its plain version's bits: on random operators, on a
-    matrix's TELL form and on the stacked TELL block of a 4-shard
-    operator.  Each product is one launch."""
+    """The gather kernel over the packed layout sums in the plain
+    version's order with the product and sum rounded apart, so it gives
+    ``sell_spmv_plain``'s bits: for TELL and ELL containers at the lanes
+    each takes and at every lane count, on the stacked TELL and ELL blocks
+    of a 4-shard operator, and after ``with_data``; at one lane a row it
+    also equals the TELL slot loop.  Each product is one launch."""
     from pflare_tpu_torch.parallel import HaloELL, make_mesh
-    from pflare_tpu_torch.sparse import TELL
+    from pflare_tpu_torch.sparse import ELL, TELL
     from pflare_tpu_torch.sparse import ell as tell
 
     dev = _card()
     rng = np.random.default_rng(12)
-    for data, cols, n_cols in _tell_cases(rng):
-        d = torch.as_tensor(data, dtype=dtype, device=dev)
-        c = torch.as_tensor(cols, dtype=torch.int32, device=dev)
-        x = torch.as_tensor(rng.standard_normal(n_cols), dtype=dtype,
+    for A in _gather_cases():
+        x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=dtype,
                             device=dev)
-        launches = tell.KERNEL_LAUNCHES
-        y = tell.tell_spmv_cuda(d, c, x)
-        assert tell.KERNEL_LAUNCHES == launches + 1
-        assert torch.equal(y, tell.tell_spmv_plain(d, c, x))
+        for cls in (TELL, ELL):
+            M = cls.from_scipy(A, dtype=dtype).to(dev)
+            for P in (M.packed, *(tell.pack(M, L) for L in tell.LANES)):
+                launches = tell.KERNEL_LAUNCHES
+                y = tell.sell_spmv_cuda(P, x)
+                assert tell.KERNEL_LAUNCHES == launches + 1
+                assert torch.equal(y, tell.sell_spmv_plain(P, x)), P.lanes
+            if cls is TELL and M.packed.lanes == 1:
+                assert torch.equal(M.matvec(x),
+                                   tell.tell_spmv_plain(M.data, M.cols, x))
+            new = M.with_data(M.data * 2)
+            assert torch.equal(new.matvec(x), 2 * M.matvec(x))
     A = _random_band(4096, 900, 6)
+    mesh = make_mesh(4)
     x = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=dtype,
                         device=dev)
-    M = TELL.from_scipy(A, dtype=dtype).to(dev)
-    assert torch.equal(M.matvec(x), tell.tell_spmv_plain(M.data, M.cols, x))
-    mesh = make_mesh(4)
-    E = HaloELL.from_scipy(A, mesh, dtype=dtype, kind="tell")
-    blk = E.blocks[0]
-    assert isinstance(blk, TELL)
-    xs = torch.as_tensor(rng.standard_normal(blk.shape[1]), dtype=dtype,
-                         device=dev)
-    assert torch.equal(blk.matvec(xs), tell.tell_spmv_plain(blk.data,
-                                                            blk.cols, xs))
-    want = M.matvec(x)
-    got = E.matvec(torch.nn.functional.pad(x, (0, E.n_pad - A.shape[0])))
-    torch.cuda.synchronize()
-    assert float((got[:A.shape[0]] - want).norm() / want.norm()) < (
-        1e-6 if dtype == torch.float32 else 1e-13)
+    for kind, cls in (("tell", TELL), ("ell", ELL)):
+        M = cls.from_scipy(A, dtype=dtype).to(dev)
+        E = HaloELL.from_scipy(A, mesh, dtype=dtype, kind=kind)
+        blk = E.blocks[0]
+        assert isinstance(blk, cls) and blk.packed is not None
+        xs = torch.as_tensor(rng.standard_normal(blk.shape[1]), dtype=dtype,
+                             device=dev)
+        assert torch.equal(blk.matvec(xs),
+                           tell.sell_spmv_plain(blk.packed, xs))
+        want = M.matvec(x)
+        got = E.matvec(torch.nn.functional.pad(x, (0, E.n_pad - A.shape[0])))
+        torch.cuda.synchronize()
+        assert float((got[:A.shape[0]] - want).norm() / want.norm()) < (
+            1e-6 if dtype == torch.float32 else 1e-13)
 
 
 def test_tell_wrapper_refuses_bad_input_on_card():
+    from pflare_tpu_torch.sparse import TELL
     from pflare_tpu_torch.sparse import ell as tell
 
     dev = _card()
-    d = torch.ones((2, 8), device=dev)
-    c = torch.zeros((2, 8), dtype=torch.int32, device=dev)
-    for args in ((d, c, torch.ones(4, dtype=torch.float64, device=dev)),
-                 (d, c.long(), torch.ones(4, device=dev)),
-                 (d.T.contiguous().T, c, torch.ones(4, device=dev))):
+    M = TELL.from_scipy(sp.random(8, 4, density=0.5, random_state=1),
+                        dtype=torch.float32).to(dev)
+    for P, x in ((M.packed, torch.ones(4, dtype=torch.float64, device=dev)),
+                 (M.packed, torch.ones(5, device=dev)),
+                 (M.packed, torch.ones(8, device=dev)[::2]),
+                 (M.packed, torch.ones(4)),
+                 (None, torch.ones(4, device=dev))):
         with pytest.raises(ValueError):
-            tell.tell_spmv_cuda(*args)
+            tell.sell_spmv_cuda(P, x)
+    cpu = TELL.from_scipy(sp.random(8, 4, density=0.5, random_state=1))
+    with pytest.raises(ValueError):
+        cpu.matvec(torch.ones(4, dtype=torch.float64, device=dev))
 
 
 def _counts():

@@ -197,7 +197,7 @@ def ex_reuse():
 
 
 def ex_scaling():
-    sizes = (16, 24, 32)
+    sizes = (12, 16, 20)
     text = _jax_example("ex_scaling", sizes)
     got = _twin("ex_scaling", sizes)
     printed = re.findall(r"(\d+)\^2\s+(\d+)\s+(\d+)\s+([0-9.]+)", text)
@@ -254,8 +254,8 @@ def nb03_cf_splittings():
     from pflare_tpu.cf import ddc, pmisr, strength_matrix
     from pflare_tpu.sparse.ops import diag_dominance_ratio
 
-    got = _notebook("03_cf_splittings", n_grid=32)["results"]
-    A = jpf.adv_diff_2d(32, curved_velocity=True)
+    got = _notebook("03_cf_splittings", n_grid=20)["results"]
+    A = jpf.adv_diff_2d(20, curved_velocity=True)
     cf = pmisr(strength_matrix(A, theta=0.5, symmetrize=True),
                max_luby_steps=-1)
     cf2, _ = ddc(A, cf.copy(), fraction_swap=0.1)
@@ -299,8 +299,8 @@ def nb04_parallel_mesh():
 
 
 def nb05_reuse_device_resetup():
-    got = _notebook("05_reuse_device_resetup", n_grid=32)["results"]
-    A = jpf.adv_diff_2d(32)
+    got = _notebook("05_reuse_device_resetup", n_grid=20)["results"]
+    A = jpf.adv_diff_2d(20)
     pc = jpf.PCAIR(jpf.AIROptions(reuse_sparsity=True, reuse_amount=3,
                                   reuse_poly_coeffs=True), jit=False)
     pc.setup(A)
@@ -321,7 +321,7 @@ def nb05_reuse_device_resetup():
 
 
 def nb06_meshes_and_fem():
-    ns = _notebook("06_meshes_and_fem", m=16, annulus=(2, 12, 3))
+    ns = _notebook("06_meshes_and_fem", m=10, annulus=(2, 8, 2))
     got = ns["results"]
     pts, cells = jpf.read_gmsh(ns["SQUARE"])
     assert got["square"] == (len(pts), {k: v.shape for k, v in cells.items()})

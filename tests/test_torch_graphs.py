@@ -160,12 +160,12 @@ label="graph_1" graph[style="dashed"];
 }"];
 
 "graph_1_node_1"[style="bold" shape="record" label="{KERNEL
-| {ID | 1 (topoId: 2) | _ZN45_GLOBAL__N__18003b79_12_tell_spmv_cu_16f1f64b16tell_spmv_kernelIfEEvPKT_PKiS3_PS1_xi\<\<\<650,256,0\>\>\>}
+| {ID | 1 (topoId: 2) | _ZN45_GLOBAL__N__5c0e7d1a_12_sell_spmv_cu_2b9e41c716sell_spmv_kernelIfLi1EEEvPKT_PKiPKxS4_S3_PS1_x\<\<\<650,256,0\>\>\>}
 | {{node handle | func handle} | {0x000000001E98E810 | 0x000000000A3B60F0}}
 }"];
 
 "graph_1_node_2"[style="bold" shape="record" label="{KERNEL
-| {ID | 2 (topoId: 1) | _ZN45_GLOBAL__N__18003b79_12_tell_spmv_cu_16f1f64b16tell_spmv_kernelIfEEvPKT_PKiS3_PS1_xi\<\<\<112,256,0\>\>\>}
+| {ID | 2 (topoId: 1) | _ZN45_GLOBAL__N__5c0e7d1a_12_sell_spmv_cu_2b9e41c716sell_spmv_kernelIfLi1EEEvPKT_PKiPKxS4_S3_PS1_x\<\<\<112,256,0\>\>\>}
 }"];
 
 "graph_1_node_3"[style="solid" shape="record" label="{MEMCPY
@@ -188,10 +188,10 @@ def test_kernel_launch_registry():
     """The three kernel modules register their counters, by kernel name,
     with no module named twice."""
     assert sorted(k for k, _ in graphs.LAUNCH_COUNTERS) == [
-        "banded_spmv_kernel", "dia_spmv_kernel", "tell_spmv_kernel"]
+        "banded_spmv_kernel", "dia_spmv_kernel", "sell_spmv_kernel"]
     assert dict((k, m) for k, m in graphs.LAUNCH_COUNTERS)[
-        "tell_spmv_kernel"] is tell
-    graphs.count_launches(tell, "tell_spmv_kernel")
+        "sell_spmv_kernel"] is tell
+    graphs.count_launches(tell, "sell_spmv_kernel")
     assert len(graphs.LAUNCH_COUNTERS) == 3
 
 
@@ -205,11 +205,11 @@ def test_graph_kernels_read_from_the_dump():
     assert sum(names.values()) == 3 and len(names) == 2
     prog = graphs.Program(lambda v: v, None, "cpu")
     prog.graph = graph
-    counts = {"dia_spmv_kernel": 1, "tell_spmv_kernel": 2}
+    counts = {"dia_spmv_kernel": 1, "sell_spmv_kernel": 2}
     prog._delta = ([counts.get(k, 0) for k, _ in graphs.LAUNCH_COUNTERS], [])
     assert prog.graph_kernels() == {"dia_spmv_kernel": 1,
                                     "banded_spmv_kernel": 0,
-                                    "tell_spmv_kernel": 2}
+                                    "sell_spmv_kernel": 2}
     assert prog.graph_kernels() == prog.counted()
     graph.keep = False
     with pytest.raises(RuntimeError, match="KEEP_GRAPHS"):

@@ -1,4 +1,5 @@
-"""The port's sparse containers: DIA, banded and TELL/ELL matvecs.
+"""The port's sparse containers: DIA, banded and TELL/ELL matvecs, and
+the packed (sliced ELL) layout of the gather kernel.
 
 On the CPU each container runs its kernel's plain PyTorch version.  It is
 held against scipy (f64), against the JAX reference's Pallas kernels in
@@ -21,8 +22,8 @@ from pflare_tpu_torch.sparse import banded as tbanded
 from pflare_tpu_torch.sparse import dia as tdia
 from pflare_tpu_torch.sparse import ell as tell
 from pflare_tpu_torch.air.fullspace import make_op
-from torch_cases import (LEVEL0_OPERATORS, dia_odd_rows, masked_level0,
-                         masked_level1)
+from torch_cases import (LEVEL0_OPERATORS, coarse_ell64, dia_odd_rows,
+                         fullspace_R64, masked_level0, masked_level1)
 
 torch.set_num_threads(1)
 
@@ -194,47 +195,198 @@ def test_tell_ell_plain_match_scipy_f64(case):
         assert abs(M.to_scipy() - A).max() == 0
 
 
-def _emulate_tell_kernel(data, cols, x):
-    """csrc/tell_spmv.cu in numpy: block b of BLOCK_THREADS threads owns
-    rows [B b, B b + B), one a thread (threads past n return); each row
-    starts its sum with slot 0's product and adds the other slots' in
-    order, every product and sum rounded on its own (numpy's elementwise
-    arithmetic in the value type contracts nothing into an FMA)."""
-    K, n = data.shape
-    B = tell.BLOCK_THREADS
-    y = np.empty(n, dtype=data.dtype)
-    for b0 in range(0, n, B):
-        rows = np.arange(b0, min(b0 + B, n))
-        acc = data[0, rows] * x[cols[0, rows]]
-        for k in range(1, K):
-            acc = acc + data[k, rows] * x[cols[k, rows]]
-        y[rows] = acc
+def _long_rows(seed=8):
+    """600 rows of 10-39 nonzeros and five of 400, over 800 columns: a
+    mean row long enough for two lanes a row."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(10, 40, 600)
+    lens[rng.choice(600, 5, replace=False)] = 400
+    rows = np.repeat(np.arange(600), lens)
+    cols = np.concatenate([rng.choice(800, k, replace=False) for k in lens])
+    return sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                         shape=(600, 800))
+
+
+SELL_CASES = {
+    "adv64": BAND_CASES["adv64"],
+    "random_band": BAND_CASES["random_band"],
+    "wide": lambda: (sp.random(700, 500, density=0.05, random_state=3,
+                               format="csr"),
+                     np.random.default_rng(3).standard_normal(500)),
+    "fullspace_R64": lambda: _with_x(fullspace_R64(), seed=4),
+    "coarse_ell64": lambda: _with_x(coarse_ell64(), seed=5),
+    "long_rows": lambda: _with_x(_long_rows(), seed=6),
+}
+
+
+def _emulate_sell_kernel(P, x):
+    """csrc/sell_spmv.cu in numpy, warp by warp: block b's threads
+    [BLOCK_THREADS b, BLOCK_THREADS (b + 1)) make warps of 32, warp w
+    owns slice w (warps past the last slice return).  Thread l of a warp
+    starts at slot slice_ptr[w] + l and steps by 32 to the slice's end,
+    adding data * x[cols] to a sum from 0, every product and sum rounded
+    on its own (numpy's elementwise arithmetic in the value type contracts
+    nothing into an FMA); then, for off = 16, 8, ... down to 32 / L, each
+    thread adds the sum of thread l + off (its own where l + off >= 32);
+    thread r < 32 / L writes y[row_of[(32 / L) w + r]] unless it is -1.
+    Every row of y is written exactly once."""
+    data, cols = P.data.numpy(), P.cols.numpy()
+    ptr, row_of = P.slice_ptr.numpy(), P.row_of.numpy()
+    x = x.numpy()
+    rows_per = tell.WARP // P.lanes
+    n_slices = len(ptr) - 1
+    y = np.zeros(P.shape[0], dtype=data.dtype)
+    written = np.zeros(P.shape[0], dtype=np.int64)
+    lane = np.arange(tell.WARP)
+    n_blocks = -(-n_slices * tell.WARP // tell.BLOCK_THREADS)
+    for b in range(n_blocks):
+        for t0 in range(0, tell.BLOCK_THREADS, tell.WARP):
+            w = (b * tell.BLOCK_THREADS + t0) // tell.WARP
+            if w >= n_slices:
+                continue
+            acc = np.zeros(tell.WARP, dtype=data.dtype)
+            p = ptr[w] + lane
+            while True:
+                live = p < ptr[w + 1]
+                assert live.all() or not live.any()
+                if not live.any():
+                    break
+                acc = acc + data[p] * x[cols[p]]
+                p = p + tell.WARP
+            off = tell.WARP // 2
+            while off >= rows_per:
+                src = lane + off
+                acc = acc + np.where(src < tell.WARP,
+                                     acc[np.minimum(src, tell.WARP - 1)], acc)
+                off //= 2
+            for r in range(rows_per):
+                row = row_of[w * rows_per + r]
+                if row >= 0:
+                    y[row] = acc[r]
+                    written[row] += 1
+    assert (written == 1).all()
     return y
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("case", ["adv64", "random_band", "wide"])
+@pytest.mark.parametrize("case", sorted(SELL_CASES))
 def test_tell_kernel_emulation_and_reference(case, dtype):
-    """The TELL kernel's arithmetic, emulated, gives the plain version's
-    bits (the card test holds the kernel itself to them), and both agree
-    with the JAX package's TELL product to rounding."""
-    from pflare_tpu.sparse import TELL as JTELL
+    """The gather kernel's arithmetic over the packed layout, emulated,
+    gives the plain version's bits (the card test holds the kernel itself
+    to them), for the TELL and the ELL container, at the lanes each
+    operator takes; at one lane a row that is also the TELL slot loop's
+    result; and both agree with the JAX package's TELL and ELL products to
+    rounding (1e-6 of max |y| in f32, 1e-14 in f64: the sum order
+    differs)."""
+    from pflare_tpu.sparse import ELL as JELL, TELL as JTELL
 
-    if case == "wide":
-        A = sp.random(700, 500, density=0.05, random_state=3, format="csr")
-        x = np.random.default_rng(3).standard_normal(500)
-    else:
-        A, x = BAND_CASES[case]()
+    A, x = SELL_CASES[case]()
     tdt = torch.float32 if dtype == np.float32 else torch.float64
-    M = TELL.from_scipy(A, dtype=tdt)
     xt = torch.from_numpy(x.astype(dtype))
-    y = M.matvec(xt).numpy()
-    np.testing.assert_array_equal(
-        _emulate_tell_kernel(M.data.numpy(), M.cols.numpy(), xt.numpy()), y)
-    J = JTELL.from_scipy(A, dtype=dtype)
-    y_ref = np.asarray(J.matvec(jnp.asarray(x.astype(dtype))))
     tol = 1e-6 if dtype == np.float32 else 1e-14
-    assert np.abs(y - y_ref).max() <= tol * np.abs(y_ref).max()
+    for cls, jcls in ((TELL, JTELL), (ELL, JELL)):
+        M = cls.from_scipy(A, dtype=tdt)
+        P = tell.pack(M)
+        y = tell.sell_spmv_plain(P, xt)
+        np.testing.assert_array_equal(_emulate_sell_kernel(P, xt), y.numpy())
+        if P.lanes == 1:
+            assert torch.equal(y, tell.tell_spmv_plain(
+                *(t.T if cls is ELL else t for t in (M.data, M.cols)), xt))
+        y_ref = np.asarray(jcls.from_scipy(A, dtype=dtype).matvec(
+            jnp.asarray(x.astype(dtype))))
+        assert np.abs(y.numpy() - y_ref).max() <= tol * np.abs(y_ref).max()
+        assert (np.abs(M.matvec(xt).numpy() - y_ref).max()
+                <= tol * np.abs(y_ref).max())
+
+
+def test_lanes_follow_row_length_and_warps():
+    """Lanes a row (``choose_lanes``) on the main path's gather operators
+    (their counts at 512^2 and 2048^2, PERF.md), as timed on the H100 by
+    tools/torch_sell_lanes.py: one for the 2048^2 level-3 R; two for the
+    512^2 level-2 R, whose 113,676 rows make too few warps at one (but
+    not more than a mean row's 3.3 slots); 8 and 16 for the coarse ELLs'
+    long rows."""
+    assert tell.choose_lanes(6807775, 1115616) == 1    # 2048^2 level-3 R
+    assert tell.choose_lanes(5989488, 390610) == 1     # 2048^2 level-5 A_fc
+    assert tell.choose_lanes(371880, 113676) == 2      # 512^2 level-2 R
+    assert tell.choose_lanes(1473119, 24069) == 8      # 512^2 coarse ELL
+    assert tell.choose_lanes(6796612, 41442) == 16     # 2048^2 coarse ELL
+    assert tell.choose_lanes(0, 0) == 1
+    assert tell.choose_lanes(4311, 2523) == 1         # 64^2 level-1 R
+    assert tell.choose_lanes(10**10, 10**7) == 32
+    assert tell.pack(ELL.from_scipy(coarse_ell64())).lanes > 1
+
+
+@pytest.mark.parametrize("lanes", tell.LANES)
+@pytest.mark.parametrize("case", ["fullspace_R64", "long_rows"])
+def test_sell_every_lane_count(case, lanes):
+    """Every lane count the kernel instantiates: the emulated kernel
+    equals the plain version bit for bit (f32, TELL storage), and both
+    agree with the ELL gather and row sum within 1e-6 of max |y|."""
+    A, x = SELL_CASES[case]()
+    M = TELL.from_scipy(A, dtype=torch.float32)
+    xt = torch.from_numpy(x.astype(np.float32))
+    P = tell.pack(M, lanes)
+    assert P.lanes == lanes
+    y = tell.sell_spmv_plain(P, xt)
+    np.testing.assert_array_equal(_emulate_sell_kernel(P, xt), y.numpy())
+    ref = M.to_ell().matvec(xt)
+    assert float((y - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("cls", [TELL, ELL])
+@pytest.mark.parametrize("case", ["wide", "fullspace_R64", "coarse_ell64"])
+def test_sell_pack_layout(case, cls):
+    """The pack: its rows sorted by length, longest first (stably) within
+    each ``SORT_WINDOW`` rows, in slices of 32 / L rows, each padded only
+    to its own longest row rounded up to L, so the packed slots are the
+    nonzeros plus that padding; every
+    nonzero's storage slot appears exactly once; the container's own
+    tensors and ``to_scipy`` are unchanged; ``with_data`` packs the new
+    values; a second container on the pattern reuses the cached index."""
+    A, _ = SELL_CASES[case]()
+    M = cls.from_scipy(A, dtype=torch.float64)
+    assert M.packed is None          # a CPU container carries none
+    data0 = M.data.clone()
+    P = tell.pack(M)
+    idx = P.index
+    lanes, rows_per = P.lanes, tell.WARP // P.lanes
+    row_of, src = idx.row_of.numpy(), idx.src.numpy()
+    lens = np.diff(A.indptr)
+    # by length, longest first, stably, within each window of rows
+    order = np.lexsort((-lens, np.arange(len(lens)) // tell.SORT_WINDOW))
+    n_slices = -(-A.shape[0] // rows_per)
+    np.testing.assert_array_equal(row_of[:A.shape[0]], order)
+    assert (row_of[A.shape[0]:] == -1).all()
+    assert len(row_of) == n_slices * rows_per
+    width = np.zeros(n_slices * rows_per, dtype=np.int64)
+    width[:A.shape[0]] = lens[order]
+    width = width.reshape(n_slices, rows_per).max(axis=1)
+    padded = tell.WARP * -(-width // lanes)
+    np.testing.assert_array_equal(np.diff(idx.slice_ptr.numpy()), padded)
+    # the nonzeros, plus each slice's padding up to its own width
+    assert P.data.numel() == idx.slice_ptr[-1] == A.nnz + (
+        padded.sum() - lens.sum())
+    want = (TELL._slot_t(M.pattern) if cls is TELL
+            else M.pattern.slot_of_pos)
+    np.testing.assert_array_equal(np.sort(src[src >= 0]), np.sort(want))
+    assert (P.data[idx.src < 0] == 0).all()
+    assert torch.equal(M.data, data0)
+    assert abs(M.to_scipy() - A).max() == 0
+    new = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        tuple(M.data.shape))) * (M.data != 0)
+    P2 = tell.pack(M.with_data(new))
+    assert P2.index is idx and len(M.pattern._packs) == 1
+    assert torch.equal(P2.data, torch.where(
+        idx.src < 0, 0.0, new.reshape(-1)[idx.src.clamp(min=0).long()]))
+    assert torch.equal(P2.cols, P.cols)
+    assert tell.pack(cls(M.pattern, new, M.cols)).index is idx
+    if case == "fullspace_R64":
+        # a third of its rows empty, the rest 1-9 long: the padded [K, n]
+        # tensors hold 3.5 slots a nonzero, the packed copy under 1.2 (at
+        # 2,523 rows, five sort windows end in part-filled slices)
+        assert (lens == 0).mean() > 0.2
+        assert P.data.numel() < 1.2 * A.nnz < 0.4 * M.data.numel()
 
 
 def test_make_op_picks_by_structure():
@@ -250,11 +402,15 @@ def test_make_op_picks_by_structure():
 
 def test_cpu_matvec_launches_no_kernel():
     A, x = _dia_case(4224)
-    d0, b0 = tdia.KERNEL_LAUNCHES, tbanded.KERNEL_LAUNCHES
+    counts = (tdia.KERNEL_LAUNCHES, tbanded.KERNEL_LAUNCHES,
+              tell.KERNEL_LAUNCHES)
     DIA.from_scipy(A).matvec(torch.from_numpy(x))
     B = _band_matrix(1200, 37, 1)
     BandedSpMV.from_scipy(B).matvec(torch.zeros(1200, dtype=torch.float64))
-    assert (tdia.KERNEL_LAUNCHES, tbanded.KERNEL_LAUNCHES) == (d0, b0)
+    for cls in (TELL, ELL):
+        cls.from_scipy(B).matvec(torch.zeros(1200, dtype=torch.float64))
+    assert (tdia.KERNEL_LAUNCHES, tbanded.KERNEL_LAUNCHES,
+            tell.KERNEL_LAUNCHES) == counts
 
 
 # ~~~~~~~~~~ CPU emulations of the CUDA kernels' index arithmetic ~~~~~~~~~~

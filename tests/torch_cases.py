@@ -15,16 +15,43 @@ from pflare_tpu_torch.sparse import DIA, BandedSpMV
 LEVEL0_OPERATORS = ("A_ff", "A_fc", "R", "P")
 
 
-@functools.cache
-def _levels128():
-    """The host levels of the 128^2 main-path hierarchy (f64)."""
+def _main_path_pc(n):
+    """A CPU PCAIR of the main path's options, set up at n^2 (f64)."""
     opts = tpf.AIROptions(a_lump=True, a_drop=1e-5, strong_threshold=0.99,
                           max_levels=6,
                           coarsest_inverse_type=tpf.InverseType.NEWTON,
                           coarsest_poly_order=24,
                           coarsest_matrix_free_polys=True)
     pc = tpf.PCAIR(opts, dtype=torch.float64, device="cpu")
-    return pc.setup(tpf.adv_diff_2d(128)).hierarchy.levels
+    return pc.setup(tpf.adv_diff_2d(n))
+
+
+@functools.cache
+def _levels128():
+    """The host levels of the 128^2 main-path hierarchy (f64)."""
+    return _main_path_pc(128).hierarchy.levels
+
+
+@functools.cache
+def _gather_operators64():
+    """The 64^2 main path's level-1 full-space R and its coarse inverse's
+    operator (the ELL of the matrix-free Newton solve), as host CSR."""
+    pc = _main_path_pc(64)
+    lvl = pc.hierarchy.levels[1]
+    R = _map_rows(lvl.R, np.asarray(lvl.coarse), lvl.n)
+    return R, pc.upload().coarse_inv.mat.to_scipy()
+
+
+def fullspace_R64():
+    """The full-space level-1 R of the 64^2 main path, as make_op
+    receives it: every F row empty.  A fresh copy on every call."""
+    return _gather_operators64()[0].copy()
+
+
+def coarse_ell64():
+    """The 64^2 main path's coarsest operator, which its matrix-free
+    Newton coarse solve multiplies by as an ELL.  A fresh copy."""
+    return _gather_operators64()[1].copy()
 
 
 @functools.cache
