@@ -20,10 +20,11 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
 5. ``solve_device(b, max_it=10, ksp="richardson")`` with every kernel
    launch counter at 0 before it: convergence to rtol 1e-5, the true
    residual against scipy, and every kernel launched; then the same solve
-   eagerly with each TELL and ELL product counted (``gather_routes``):
-   the gather kernel ``csrc/sell_spmv.cu`` launched once a product for
-   the TELL operators and for the coarse inverse's ELL, as many times in
-   all as the counted solve;
+   eagerly with each TELL, ELL and DELL product counted
+   (``gather_routes``): the gather kernel ``csrc/sell_spmv.cu`` launched
+   once a product for the TELL operators and for the coarse inverse's
+   ELL, as many times in all as the counted solve, and once a product in
+   an apply and a stationary right GMRES;
 6. the f64 parity configuration at 512^2: full depth, right GMRES from
    x0 = 1 with a zero RHS, rtol 1e-10, <= 6 iterations, by the default
    (stationary) GMRES and by the host-driven one (``eager=True``), twice
@@ -132,8 +133,14 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     synchronisations by level, the level sizes against phase 7's (levels
     within 1, level-0 F fraction within 0.1: the reference's rule),
     ``solve_device`` with 10 Richardson iterations and the counters at 0
-    (true residual <= 1e-4, the DIA kernel launched), one setup under
-    torch.profiler;
+    (true residual <= 1e-4, the DIA kernel launched); the form's DELLs on
+    the gather kernel (``dell_checks``: each packed by the setup, the
+    kernel against ``sell_spmv_plain`` bit for bit in f32 and f64 and
+    within 1e-6 / 1e-14 of max |y| of the DELL's gather and row sum,
+    ``measure`` on the widest, ``gather_routes``, the solve through its
+    graph bit for bit against eager with no DELL packed and the graph's
+    kernel nodes equal to the counters); the solve profiled with and
+    without graphs (``profile_solve``); one setup under torch.profiler;
 14. unstructured meshes: (a) a jittered Delaunay mesh of 2 x 1024^2
     triangles in a scrambled cell order, written as Gmsh 4.1 ASCII,
     read back by ``read_gmsh`` (equal to the mesh written) and assembled
@@ -147,7 +154,8 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     scipy <= 1e-4, and on the host-built hierarchy the top A banded and
     the banded kernel launched at least once an iteration; the banded
     kernel against its plain version on that top A, which ``measure``
-    also times; (b) the same for ``dg1_upwind_advection`` on 2 x 512^2
+    also times; on the device-built hierarchy phase 13 (b)'s
+    ``dell_checks``; (b) the same for ``dg1_upwind_advection`` on 2 x 512^2
     triangles with ``reorder="auto"``, where the solve that must
     converge is right GMRES (its V-cycle diverges as a stationary
     iteration at this size; a Richardson run is printed for the
@@ -461,7 +469,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import pflare_tpu_torch as tpf
     from pflare_tpu_torch import cuda, native
-    from pflare_tpu_torch.sparse import DIA, ELL, TELL, BandedSpMV
+    from pflare_tpu_torch.sparse import DELL, DIA, ELL, TELL, BandedSpMV
     from pflare_tpu_torch.sparse import banded as tbanded
     from pflare_tpu_torch.sparse import dia as tdia
     from pflare_tpu_torch.sparse import ell as sell
@@ -573,7 +581,7 @@ def main() -> int:
         if isinstance(M, DIA):
             return tdia.dia_spmv_plain(M.data, M.offsets, x, *M.shape,
                                        M.col_base)
-        if isinstance(M, (TELL, ELL)):
+        if isinstance(M, (TELL, ELL, DELL)):
             return sell.sell_spmv_plain(M.packed, x)
         return tbanded.banded_spmv_plain(M.data, M.lcols, x, M.n, M.w, M.W,
                                          M.col_base)
@@ -585,6 +593,12 @@ def main() -> int:
             return DIA(M.offsets, data, M.shape, M.col_base)
         if isinstance(M, (TELL, ELL)):
             return type(M)(M.pattern, data, M.cols.clone())
+        if isinstance(M, DELL):
+            # packed now (by the index cached on its cols): a capture of
+            # its products cannot pack
+            D = DELL(data, M.cols, M.n_cols, M.nonzero_slots)
+            D.pack()
+            return D
         return BandedSpMV(data, M.lcols.clone(), M.n, M.n_cols, M.w, M.W,
                           M.col_base)
 
@@ -600,13 +614,17 @@ def main() -> int:
         over 3.35 TB/s and 2 FLOPs per nonzero over 67 TFLOP/s: what this
         operator's product needs, not what its layout stores (padded
         slots hold 0 and add nothing).  The x entries read are the
-        columns that hold a nonzero.  A gather operator's plain version
-        is ``sell_spmv_plain`` over its packed copy."""
+        columns that hold a nonzero.  A gather operator's (TELL, ELL,
+        DELL) plain version is ``sell_spmv_plain`` over its packed
+        copy.  Stored zeros (the masked A_ff and A_fc of a device-built
+        form keep A's slots) are no nonzeros of the product: the bound and
+        cuSPARSE's CSR leave them out."""
         host = op.to_scipy()
+        host.eliminate_zeros()
         n, n_cols = op.shape
         T = op.data.element_size()
         banded = isinstance(op, BandedSpMV)
-        gather = isinstance(op, (TELL, ELL))
+        gather = isinstance(op, (TELL, ELL, DELL))
         op_bytes = (op.packed.nbytes if gather else
                     op.data.numel() * (T + (4 if banded else 0)))
         copies = min(R, max(1, math.ceil(2 * L2_BYTES / op_bytes)))
@@ -643,9 +661,11 @@ def main() -> int:
                       "a row")
         else:
             stored = f"{op.data.numel()} slots"
+        K = (op.K if isinstance(op, DELL) else
+             op.pattern.K if gather else op.data.shape[0])
         row = {
             "shape": f"{label}: {type(op).__name__} {n} x {n_cols}, "
-                     f"K={op.pattern.K if gather else op.data.shape[0]}"
+                     f"K={K}"
                      + (f", W={op.W}" if banded else "")
                      + f", {host.nnz} nonzeros in {stored}",
             "ms": min(k1, k2), "plain_ms": min(p1, p2),
@@ -726,6 +746,7 @@ def main() -> int:
         "banded": [measure("512^2 " + label, op)
                    for label, op in banded_targets(dh)],
         "sell": [],     # phase 17 (d)
+        "dell": [],     # phases 13 (b) and 14, device-built forms
     }
 
     # ~~~~~~~~~~ 5. the main path's solve at 512^2 ~~~~~~~~~~
@@ -925,14 +946,16 @@ def main() -> int:
     print(f"# phase 12: {t_phase12:.3f} s")
 
     # ~~~~~~~~~~ 13. device first setup ~~~~~~~~~~
-    setup_runs, t_phase13 = phase13(np, sp, torch, tpf, tdia, tbanded, dev,
-                                    A512, A2k, host512, host2k)
+    setup_runs, t_phase13, dell_runs = phase13(
+        np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512, host2k,
+        measure, err, timed, profile_solve)
     print(f"# phase 13: {t_phase13:.3f} s")
 
     # ~~~~~~~~~~ 14. unstructured meshes ~~~~~~~~~~
     mesh_runs, t_phase14, fv = phase14(np, sp, torch, tpf, tdia, tbanded,
                                        dev, check, measure, timed,
-                                       profile_solve, setup_breakdown)
+                                       profile_solve, setup_breakdown, err,
+                                       dell_runs)
     print(f"# phase 14: {t_phase14:.3f} s")
 
     # ~~~~~~~~~~ 15. the row mesh ~~~~~~~~~~
@@ -1022,6 +1045,9 @@ def main() -> int:
         "solve_us_per_call_2048": us_2048["sell"],
         "launch_floor_ms": floor_ms,
         "one_program": one_program,
+        "dell": {label: {k: v for k, v in run.items() if k != "timing"}
+                 for label, run in dell_runs.items()},
+        "dell_timings": timed["dell"],
         "timings": timed["sell"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1941,17 +1967,21 @@ def graph_launches(pcx, label):
 
 
 def gather_routes(torch, pcx, bx, sell, launched, label):
-    """The gather kernel's launches by container in one eager
-    (``jit=False``) ``solve_device`` of 10 Richardson its: each TELL and
-    ELL of the device form has its ``matvec`` wrapped for the run, and
-    each call must launch the kernel exactly once (so the coarse ELL runs
-    no index_select gather and row sum).  Both containers must launch it,
-    and together as often as the counted solve before (``launched``).
-    Returns {"TELL": launches an iteration, "ELL": ...}."""
-    from pflare_tpu_torch.sparse import ELL, TELL
+    """The gather kernel's launches by container in an eager
+    (``jit=False``) ``solve_device`` of 10 Richardson its, one ``apply``
+    and a stationary right GMRES (rtol 1e-5, at most 30 its): each TELL,
+    ELL and DELL of the device form has its ``matvec`` wrapped for the
+    runs, and each call must launch the kernel exactly once (so no
+    container runs an index_select gather and row sum).  Every gather
+    container kind of the form must launch it in the solve, and together
+    as often as the counted solve before (``launched``).  Returns {kind:
+    launches an iteration of the solve} with, under "apply" and "gmres",
+    the launches by kind of the apply and an iteration of GMRES."""
+    from pflare_tpu_torch.solvers.jitted import gmres_stationary
+    from pflare_tpu_torch.sparse import DELL, ELL, TELL
     from pflare_tpu_torch.utils.timers import device_sync_read
 
-    calls = {"TELL": 0, "ELL": 0}
+    calls = {"TELL": 0, "ELL": 0, "DELL": 0}
     wrapped = []
 
     def wrap(op):
@@ -1969,23 +1999,143 @@ def gather_routes(torch, pcx, bx, sell, launched, label):
         op.matvec = matvec
         wrapped.append(op)
 
-    for _, op in _device_ops(pcx.upload()):
-        if isinstance(op, (TELL, ELL)):
+    dh = pcx.upload()
+    for _, op in _device_ops(dh):
+        if isinstance(op, (TELL, ELL, DELL)):
             wrap(op)
+    kinds = {type(op).__name__ for op in wrapped}
+    runs = {}
     pcx.jit = False
     try:
-        device_sync_read(*pcx.solve_device(bx, max_it=10, ksp="richardson"))
+        for what in ("solve", "apply", "gmres"):
+            for k in calls:
+                calls[k] = 0
+            if what == "solve":
+                device_sync_read(*pcx.solve_device(bx, max_it=10,
+                                                   ksp="richardson"))
+                its = 10
+            elif what == "apply":
+                device_sync_read(pcx.apply(bx))
+                its = 1
+            else:
+                bi = pcx._to_internal(pcx._vector(bx))
+                _, its, _, _ = gmres_stationary(
+                    dh.top.matvec, pcx._precond(dh), bi, None, 1e-5, 1e-50,
+                    30, 30, "right")
+                its = max(int(its), 1)
+            runs[what] = {k: calls[k] / its for k in sorted(kinds)}
+            if what == "solve":
+                total = sum(calls.values())
+                require(kinds and all(calls[k] > 0 for k in kinds)
+                        and total == launched,
+                        f"{label}: gather kernel launches by container "
+                        f"{calls}, {launched} counted in the solve before")
     finally:
         pcx.jit = True
         for op in wrapped:
             del op.matvec
-    require(min(calls.values()) > 0 and sum(calls.values()) == launched,
-            f"{label}: gather kernel launches by container {calls}, "
-            f"{launched} counted in the solve before")
-    print(f"# {label} solve_device: the gather kernel launched "
-          f"{calls['TELL'] / 10:.1f} times an iteration for TELL operators "
-          f"and {calls['ELL'] / 10:.1f} for the coarse ELL", flush=True)
-    return {k: v / 10 for k, v in calls.items()}
+    print(f"# {label}: every gather product launched the gather kernel "
+          f"once; launches an iteration of solve_device by container "
+          f"{runs['solve']}, in one apply {runs['apply']}, an iteration of "
+          f"stationary right GMRES {runs['gmres']}", flush=True)
+    return {**runs["solve"], "apply": runs["apply"], "gmres": runs["gmres"]}
+
+
+def dell_checks(np, torch, pcx, bx, label, measure, err):
+    """The DELLs of a device-built solve form on the gather kernel: every
+    one packed by the setup; its product, in its own dtype and in the
+    other of f32 and f64 (a copy, packed as the setup packs), launches the
+    kernel once and equals
+    ``sell_spmv_plain`` over the packed copy bit for bit, within 1e-6
+    (f32) or 1e-14 (f64) of max |y| of the DELL's plain gather and row
+    sum; ``measure`` on the widest (most stored slots); a counted
+    ``solve_device`` (10 Richardson its, replayed) and ``gather_routes``;
+    the solve through its graph equal to the eager one bit for bit, no
+    DELL packed in either, and the graphs' kernel nodes equal to the
+    counters (``graph_launches``).  Returns the numbers, with the timing
+    row under "timing"."""
+    from pflare_tpu_torch.air.device_setup import solve_form_dells
+    from pflare_tpu_torch.sparse import DELL
+    from pflare_tpu_torch.sparse import dell as tdell
+    from pflare_tpu_torch.sparse import ell as sell
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    dev = pcx.device
+    dells = solve_form_dells(pcx.upload())
+    require(dells and all(M._packed is not None for M in dells),
+            f"{label}: the device-built form has no DELL, or one unpacked")
+    rng = np.random.default_rng(14)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    other = {torch.float32: torch.float64, torch.float64: torch.float32}
+    copies = [DELL(M.data.to(other[M.dtype]), M.cols, M.n_cols,
+                   M.nonzero_slots) for M in dells]
+    tdell.pack_dells(copies)
+    for D in dells + copies:
+        dtype = D.dtype
+        x = torch.as_tensor(rng.standard_normal(D.n_cols), dtype=dtype,
+                            device=dev)
+        before = sell.KERNEL_LAUNCHES
+        y = D.matvec(x)
+        ref = sell.sell_spmv_plain(D.packed, x)
+        own = tdell.dell_spmv_plain(D, x)
+        torch.cuda.synchronize()
+        require(sell.KERNEL_LAUNCHES == before + 1,
+                f"{label}: a DELL product launched "
+                f"{sell.KERNEL_LAUNCHES - before} gather kernels")
+        require(torch.equal(y, ref), f"{label} {dtype}: the gather "
+                f"kernel differs from its plain version on a DELL of "
+                f"{D.shape[0]} rows by {float((y - ref).abs().max()):.3e}")
+        gap = float((y - own).abs().max()
+                    / max(float(own.abs().max()), 1e-300))
+        require(gap <= {torch.float32: 1e-6, torch.float64: 1e-14}[dtype],
+                f"{label} {dtype}: the kernel is {gap:.3e} of max |y| "
+                "from the DELL's gather and row sum")
+        worst[dtype] = max(worst[dtype], gap)
+        err["sell"] = max(err["sell"], float((y - ref).abs().max()))
+    nnz = sum(int((M.cols < tdell.PADCOL).sum()) for M in dells)
+    # the masked A_ff and A_fc keep all of A's slots, zeroed outside
+    # their blocks, and pack their nonzeros alone (``nonzero_slots``)
+    nonzero = sum(int(((M.cols < tdell.PADCOL) & (M.data != 0)).sum())
+                  for M in dells)
+    slots = sum(M.data.numel() for M in dells)
+    packed = sum(M.packed.data.numel() for M in dells)
+    zeros = sum(int(((M.packed.data == 0) & (M.packed.index.src >= 0)).sum())
+                for M in dells)
+    masked = sum(M.nonzero_slots for M in dells)
+    print(f"# {label}: the gather kernel equals its plain version bit for "
+          f"bit in f32 and f64 on the form's {len(dells)} DELLs ({masked} "
+          f"packing their nonzeros alone; {nnz} live slots, {nonzero} of "
+          f"them nonzero, in {slots} slots; packed in {packed}, {zeros} "
+          f"packed live slots zero), within "
+          f"{worst[torch.float32]:.3e} / {worst[torch.float64]:.3e} of max "
+          "|y| of their gather and row sum", flush=True)
+    widest = max(dells, key=lambda M: M.data.numel())
+    names = {id(op): lab for lab, op in _device_ops(pcx.upload())}
+    timing = measure(f"{label} widest DELL ({names.get(id(widest), '?')})",
+                     widest)
+    sell.KERNEL_LAUNCHES = 0
+    device_sync_read(*pcx.solve_device(bx, max_it=10, ksp="richardson"))
+    launched = sell.KERNEL_LAUNCHES
+    routes = gather_routes(torch, pcx, bx, sell, launched, label)
+    packs = tdell.PACKS
+    pcx.jit = True
+    g = pcx.solve_device(bx, max_it=10, ksp="richardson")
+    pcx.jit = False
+    try:
+        e = pcx.solve_device(bx, max_it=10, ksp="richardson")
+    finally:
+        pcx.jit = True
+    require(all(bool(torch.equal(u, v)) for u, v in zip(g, e)),
+            f"{label}: solve_device through its graph is not the eager "
+            "solve bit for bit")
+    require(tdell.PACKS == packs, f"{label}: {tdell.PACKS - packs} DELLs "
+            "packed during the solves")
+    nodes = graph_launches(pcx, label)
+    return {"dells": len(dells), "live_slots": nnz, "nonzeros": nonzero,
+            "packed_zero_slots": zeros, "slots": slots, "packed": packed,
+            "launches_per_iteration": launched / 10,
+            "routes": routes, "graph_kernel_nodes": nodes,
+            "timing": timing}
 
 
 def install_replay(np, torch, pc, plan, A_old, b, norms_old):
@@ -2059,25 +2209,29 @@ PHASE13_SETS = (
 
 
 def phase13(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512,
-            host2k):
+            host2k, measure, err, timed, profile_solve):
     """The device first setup on the card (see the module docstring,
     phase 13).  ``host512``: phase 6's right-GMRES iterations; ``host2k``:
     phase 7's host setup and upload seconds and level sizes.  Returns the
-    runs ({label: {"launches", "iterations"}}) and the phase's seconds."""
+    runs ({label: {"launches", "iterations"}}), the phase's seconds and
+    (b)'s ``dell_checks``."""
     from pflare_tpu_torch.air.setup_compare import (LevelMatrices,
                                                     compare_setups,
                                                     setup_levels)
     from pflare_tpu_torch.sparse import DELL, DIA
+    from pflare_tpu_torch.sparse import ell as sell
     from pflare_tpu_torch.utils.timers import count_syncs, device_sync_read
 
     t_phase = time.perf_counter()
 
     def counts():
-        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES,
+                "sell": sell.KERNEL_LAUNCHES}
 
     def zero_counts():
         tdia.KERNEL_LAUNCHES = 0
         tbanded.KERNEL_LAUNCHES = 0
+        sell.KERNEL_LAUNCHES = 0
 
     def timed_setup(pc, A):
         t0 = time.perf_counter()
@@ -2295,13 +2449,26 @@ def phase13(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512,
     print(f"# 2048^2 f32 setup_device solve_device: 10 Richardson its "
           f"{t_solve:.4f} s, rtol 1e-5 at iteration {its}, true residual "
           f"{true:.3e}, launches {launches} (DIA {launches['dia'] / 10:.1f}, "
-          f"banded {launches['banded'] / 10:.1f} an iteration), relative "
+          f"banded {launches['banded'] / 10:.1f}, gather "
+          f"{launches['sell'] / 10:.1f} an iteration), relative "
           f"norms {np.array2string(norms / norms[0], precision=3)}")
     require(np.isfinite(norms).all() and true <= 1e-4,
             f"2048^2 setup_device: true residual {true:.3e} after 10 its")
     require(launches["dia"] > 0, "2048^2 setup_device: no DIA launch")
     runs["2048 setup_device richardson"] = {"launches": launches,
                                             "iterations": 10}
+    dell = {"2048^2 device-built": dell_checks(
+        np, torch, pc, b2k, "2048^2 device-built", measure, err)}
+    timed["dell"].append(dell["2048^2 device-built"]["timing"])
+    dell["2048^2 device-built"]["profiled"] = profile_solve(
+        pc, b2k, "2048^2 device-built")
+    dh = pc.upload()
+    print(f"# 2048^2 device-built containers: top {type(dh.top).__name__}; "
+          + "; ".join(f"level {i}: " + ", ".join(
+              f"{k} {type(lev[k]).__name__}" for k in ("A_ff", "A_fc", "R",
+                                                        "P"))
+              for i, lev in enumerate(dh.levels)), flush=True)
+    del dh
 
     # one warm setup_device under the profiler, device activity alone
     from torch.autograd import DeviceType
@@ -2321,7 +2488,7 @@ def phase13(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512,
     print(f"# phase 13 (a) {t_a:.3f} s, (b) "
           f"{time.perf_counter() - t_phase - t_a:.3f} s")
     del pc, h, x
-    return runs, time.perf_counter() - t_phase
+    return runs, time.perf_counter() - t_phase, dell
 
 
 # ~~~~~~~~~~ phase 14: unstructured meshes ~~~~~~~~~~
@@ -2460,7 +2627,7 @@ PHASE14_SETS = (
 
 
 def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
-            profile_solve, setup_breakdown):
+            profile_solve, setup_breakdown, err, dell_runs):
     """Unstructured meshes on the card (see the module docstring, phase
     14).  Returns the runs ({label: {"launches", "iterations"}}), the
     phase's seconds and (a)'s FV matrix, RHS and host-built PCAIR."""
@@ -2468,6 +2635,7 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
     import tempfile
 
     from pflare_tpu_torch.sparse import BandedSpMV
+    from pflare_tpu_torch.sparse import ell as sell
     from pflare_tpu_torch.utils.timers import device_sync_read, reset_timers
 
     require(dev.type == "cuda", "phase 14 runs on the card")
@@ -2476,11 +2644,13 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
     runs = {}
 
     def counts():
-        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES}
+        return {"dia": tdia.KERNEL_LAUNCHES, "banded": tbanded.KERNEL_LAUNCHES,
+                "sell": sell.KERNEL_LAUNCHES}
 
     def zero_counts():
         tdia.KERNEL_LAUNCHES = 0
         tbanded.KERNEL_LAUNCHES = 0
+        sell.KERNEL_LAUNCHES = 0
 
     def containers(pc):
         """Each level's size and the container of each of its operators
@@ -2519,7 +2689,8 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
               f"{res.converged}), {t:.4f} s to completion, true residual "
               f"{true:.3e}, launches {launches}, an iteration dia "
               f"{launches['dia'] / its:.2f} banded "
-              f"{launches['banded'] / its:.2f}, relative norms "
+              f"{launches['banded'] / its:.2f} gather "
+              f"{launches['sell'] / its:.2f}, relative norms "
               + np.array2string(h[:12] / h[0], precision=3,
                                 max_line_width=10**4))
         if needed:
@@ -2603,6 +2774,10 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
               f"upload), {pcd.n_levels} levels; {containers(pcd)}")
         solve(f"{label} setup_device", pcd, A, b, ksp)
         profile_solve(pcd, b, f"{label} device-built")
+        run = dell_checks(np, torch, pcd, b, f"{label} device-built",
+                          measure, err)
+        timed["dell"].append(run["timing"])
+        dell_runs[f"{label} device-built"] = run
         del pcd
         return A, b, top, launches, pc
 

@@ -39,11 +39,12 @@ from ..options import AIROptions
 from ..params import (C_POINT, F_POINT, CFSplittingType, InverseType, ZType,
                       tolerances)
 from ..sparse.dell import (DELL, OFFBIG, PADCOL, _pad_cols, apply_restrict_plan,
-                           compact, distinct_offsets_device, drop_rows,
-                           extract_dell, gather_at_pattern, max_row_count,
-                           newton_poly_dell, onecol_product, poly_dell,
-                           restrict_plan, sort_rows, spgemm_drop_dell,
-                           transpose_pattern, union_patterns)
+                           compact, dell_spmv_plain, distinct_offsets_device,
+                           drop_rows, extract_dell, gather_at_pattern,
+                           max_row_count, newton_poly_dell, onecol_product,
+                           pack_dells, poly_dell, restrict_plan, sort_rows,
+                           spgemm_drop_dell, transpose_pattern,
+                           union_patterns)
 from ..sparse.dia import DIA
 from ..sparse.dtypes import numpy_dtype
 from ..utils.timers import current_syncs, timer
@@ -270,9 +271,11 @@ def _cr_split_device(A: DELL, opts: AIROptions):
         nu = CR_NU_POLY if use_poly else CR_NU
         forced_c = torch.zeros(n_f, dtype=torch.bool, device=A.device)
         if use_poly:
-            apply_inv = _inverse_device(Aff, opts, opts.inverse_type,
-                                        opts.poly_order, False, opts.seed,
-                                        A.dtype).apply
+            # an assembled polynomial of the compressed A_ff
+            inv_mat = _inverse_device(Aff, opts, opts.inverse_type,
+                                      opts.poly_order, False, opts.seed,
+                                      A.dtype).mat
+            apply_inv = lambda v: dell_spmv_plain(inv_mat, v)
         else:
             d = Aff.diagonal()
             forced_c = d == 0.0
@@ -291,7 +294,7 @@ def _cr_split_device(A: DELL, opts: AIROptions):
         e = rand_full[fine_idx]
         norm_e0 = torch.linalg.vector_norm(e)
         for _ in range(nu):
-            e = e - apply_inv(Aff.matvec(e))
+            e = e - apply_inv(dell_spmv_plain(Aff, e))
         rate = float((torch.linalg.vector_norm(e)
                       / torch.where(norm_e0 != 0, norm_e0, 1.0))
                      ** (1.0 / nu))
@@ -546,14 +549,16 @@ def _inverse_device(A_ff: DELL, opts: AIROptions, inverse_type,
         return Inverse("assembled", mat=_neumann_dell(A_ff, poly_order),
                        coefficients=ones)
 
-    mv = A_ff.matvec
+    # the coefficients' products run plain: the compressed A_ff stays out
+    # of the solve form, so it is never packed
+    mv = lambda v: dell_spmv_plain(A_ff, v)
     if opts.diag_scale_polys:
-        mv = lambda v: A_ff.matvec(v) / diag
+        mv = lambda v: dell_spmv_plain(A_ff, v) / diag
     sdiag = diag if opts.diag_scale_polys else None
 
     if inverse_type in (InverseType.NEWTON, InverseType.NEWTON_NO_EXTRA):
         r0 = tensor(box_muller(n, np.float64, seed), A_ff.dtype)
-        beta, H = arnoldi_fixed_device(A_ff, r0, poly_order + 1, diag=sdiag)
+        beta, H = arnoldi_fixed_device(mv, r0, poly_order + 1)
         m = reached_order(H, poly_order + 1, tol.lucky)
         wr, wi = newton_roots(
             None, n, poly_order, np_dt,
@@ -576,7 +581,7 @@ def _inverse_device(A_ff: DELL, opts: AIROptions, inverse_type,
             qr_reduce=qr_r_device)
     elif inverse_type == InverseType.ARNOLDI:
         r0 = tensor(box_muller(n, np.float64, seed), A_ff.dtype)
-        beta, H = arnoldi_fixed_device(A_ff, r0, poly_order + 1, diag=sdiag)
+        beta, H = arnoldi_fixed_device(mv, r0, poly_order + 1)
         coeffs = coefficients_arnoldi_from_h(beta, H, poly_order, np_dt)
     else:
         raise ValueError(f"device setup: unsupported inverse {inverse_type}")
@@ -827,7 +832,9 @@ def setup_hierarchy_device(A, opts: AIROptions, dtype=torch.float32,
     """Build the AIR hierarchy with every O(nnz) step on ``device``.
 
     ``A``: a scipy matrix (uploaded once, in ``dtype``) or a ``DELL``
-    (used on its own device, its values cast to ``dtype``).
+    (used on its own device, its values cast to ``dtype``).  On a CUDA
+    device the solve form's DELLs are packed for the gather kernel at the
+    end, with one host read (``solve_form_dells``, ``pack_dells``).
     """
     if not device_setup_supported(opts):
         raise ValueError("device setup does not support this option set; "
@@ -992,12 +999,14 @@ def setup_hierarchy_device(A, opts: AIROptions, dtype=torch.float32,
                                   n_c, compact_width=False)
 
         aff_ext, afc_ext, fmask = _mask_ext_ops(A, cf)
-        A_ff_ext_op = DELL(aff_ext, A.cols, n)
+        # each keeps all of A's slots, most of them zeroed: its packed
+        # copy holds its nonzeros alone
+        A_ff_ext_op = DELL(aff_ext, A.cols, n, nonzero_slots=True)
         dev = {
             "mask_f": fmask.to(dtype),
             "coarse": coarse_idx,
             "A_ff": A_ff_ext_op,
-            "A_fc": DELL(afc_ext, A.cols, n),
+            "A_fc": DELL(afc_ext, A.cols, n, nonzero_slots=True),
             "inv_Aff": _extend_inverse(inv_Aff, A_ff_ext_op, fine_idx, cf,
                                        n, dtype),
             "R": R_ext,
@@ -1023,10 +1032,30 @@ def setup_hierarchy_device(A, opts: AIROptions, dtype=torch.float32,
     solve_form = DeviceHierarchy([lvl.device for lvl in levels], coarse_inv,
                                  top_A, False)
     _optimize_layouts(solve_form)
+    if top_A.data.is_cuda:
+        # before any capture: a CUDA graph of the solve cannot pack
+        pack_dells(solve_form_dells(solve_form))
     syncs1 = current_syncs()
     return DeviceSetupHierarchy(
         levels, A, coarse_inv, opts, top_A, solve_form, auto_truncated,
         coarse_syncs=None if syncs0 is None else syncs1 - syncs0)
+
+
+def solve_form_dells(h: DeviceHierarchy) -> list:
+    """Every DELL a device-built solve form multiplies by, each once: the
+    top operator, each level's A_ff, A_fc, R, P and inverse's matrix
+    (assembled, or the operator of a matrix-free one), and the coarse
+    inverse's."""
+    found = {}
+    ops = [h.top, getattr(h.coarse_inv, "mat", None)]
+    for dev in h.levels:
+        ops += [dev.get(k) for k in ("A_ff", "A_fc", "R", "P")]
+        inv = dev.get("inv_Aff")
+        ops.append(getattr(inv, "mat", None))
+    for op in ops:
+        if isinstance(op, DELL):
+            found.setdefault(id(op), op)
+    return list(found.values())
 
 
 # ~~~~~~~~~~~~~~~~~~ DIA layouts ~~~~~~~~~~~~~~~~~~

@@ -150,16 +150,15 @@ def qr_r_device(cols) -> np.ndarray:
     ).numpy()
 
 
-def arnoldi_fixed_device(op, r0, subspace: int, diag=None):
+def arnoldi_fixed_device(mv, r0, subspace: int):
     """The whole Arnoldi on the device at a fixed shape (the device setup
     path, pflare_tpu/inverse/gmres_poly.py:115-176): V is a preallocated
     [subspace+1, n] basis and each step a masked modified Gram-Schmidt
     update; a lucky breakdown scales by zero, which reproduces
-    H[j+1, j] ~ 0 for the host's coefficient solves.  ``diag``: optional
-    right diagonal scaling (the matvec is op(v) / diag).  Returns (beta,
-    H) as host float64, read back once."""
+    H[j+1, j] ~ 0 for the host's coefficient solves.  ``mv``: the
+    operator's product (with any diagonal scaling applied).  Returns
+    (beta, H) as host float64, read back once."""
     n = r0.shape[0]
-    mv = op.matvec if diag is None else (lambda v: op.matvec(v) / diag)
     beta = torch.linalg.vector_norm(r0)
     V = r0.new_zeros((subspace + 1, n))
     V[0] = r0 / beta

@@ -16,10 +16,12 @@ choice): a DIA or banded block with its own offsets or bandwidth and a
 column base (the shard's extended window starts ``w`` entries before its
 own block), so the DIA and banded kernels run once per active shard, on
 the shard's rows.  The gather containers (TELL, ELL, DELL) read x at
-any column, and each product costs a launch (TELL and ELL: the gather
-kernel; DELL: PyTorch's gather and row sum) whatever its length, so the
-shards' blocks stack into one container over the shards' windows laid
-end to end: one product for the whole mesh.
+any column, and each product costs one launch of the gather kernel
+``csrc/sell_spmv.cu`` over the container's packed copy, whatever its
+length, so the shards' blocks stack into one container over the shards'
+windows laid end to end: one product for the whole mesh.  A stacked
+DELL on a card is packed where it is built, so a captured sharded solve
+packs nothing.
 ``RowShardedOp`` is the fallback when the band check fails: each shard
 reads the all-gathered vector, at column base ``s * w``.  ``from_scipy``
 cuts the blocks from a host matrix; ``from_op`` cuts the same blocks
@@ -57,7 +59,7 @@ def _block(kind: str, M: sp.csr_matrix, dtype, device, col_base: int):
     if kind == "ell":
         return ELL.from_scipy(M, dtype).to(device)
     if kind == "dell":
-        return DELL.from_scipy(M, dtype, device)
+        return _packed_dell(DELL.from_scipy(M, dtype, device))
     raise ValueError(f"unknown container kind {kind!r}")
 
 
@@ -66,6 +68,14 @@ def _not_banded():
         "matrix is not banded for this partition: a row needs columns "
         "beyond the neighbouring shards (use the all-gather path or fewer "
         "shards)")
+
+
+def _packed_dell(M: DELL) -> DELL:
+    """A DELL with its packed copy made now where it lies on a card (the
+    gather kernel reads it; a CUDA graph's capture cannot make it)."""
+    if M.data.is_cuda:
+        M.pack()
+    return M
 
 
 # containers whose product gathers x at any column: the shards' blocks
@@ -271,8 +281,9 @@ class _ShardedOp:
                     cols, w, rounding_mode="floor")).abs() > 1)).any()):
                 _not_banded()
             move = -cls._shift(s, w) + (s * n_src if cls.halo else 0)
-            return DELL(op.data[:m], torch.where(live, cols + move, PADCOL)
-                        .to(torch.int32), n_stack)
+            return _packed_dell(DELL(
+                op.data[:m], torch.where(live, cols + move, PADCOL)
+                .to(torch.int32), n_stack, op.nonzero_slots))
         pat = op.pattern
         row_len = np.diff(pat.indptr[:m + 1])
         if cls.halo and pat.nnz:

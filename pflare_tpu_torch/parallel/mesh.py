@@ -226,7 +226,9 @@ def _pad_op_rows_to(op, n_pad: int):
     own device (its columns widen to ``n_pad`` when it is square, since
     the padded vector space is then both sides): DIA and banded values
     pad with zeros, DELL rows with (0, PADCOL) slots, and a TELL or ELL
-    extends its host pattern with empty rows.  No value is read back."""
+    extends its host pattern with empty rows.  No value is read back, and
+    a padded DELL is not packed: the shard blocks cut from it
+    (``halo.py::_ShardedOp.from_op``) run the products and pack there."""
     from ..sparse import ELL, TELL
     from ..sparse.banded import TILE_ROWS, BandedSpMV
     from ..sparse.dell import DELL, PADCOL
@@ -250,7 +252,8 @@ def _pad_op_rows_to(op, n_pad: int):
                           op.W, op.col_base)
     if isinstance(op, DELL):
         return DELL(F.pad(op.data, (0, 0, 0, extra)),
-                    F.pad(op.cols, (0, 0, 0, extra), value=PADCOL), cols)
+                    F.pad(op.cols, (0, 0, 0, extra), value=PADCOL), cols,
+                    op.nonzero_slots)
     if isinstance(op, (TELL, ELL)):
         pat = op.pattern
         pattern = SparsityPattern(

@@ -17,6 +17,21 @@ padded rectangles whose width follows the fill level by level:
 tensors); it widens to int64 only where it indexes.  Every PADCOL index
 is clamped or sent to a sentinel before it indexes anything: an
 out-of-range index on a CUDA tensor is a device-side assert.
+
+The product ``DELL.matvec`` runs the gather kernel ``csrc/sell_spmv.cu``
+on a CUDA tensor, over a packed copy of the DELL (``packed``, a
+``sparse/ell.py::Sell``: rows sorted by length in slices, only the live
+slots, pads (0, 0), so PADCOL never reaches the kernel), and on a CPU
+tensor its plain version ``dell_spmv_plain`` (one gather and row sums,
+the reference's product, pflare_tpu/sparse/dell.py:78-80).  The packing
+index comes from the row lengths, built on the DELL's device and cached
+on its ``cols`` tensor, so operators that share a pattern share one
+index; ``pack_dells`` packs many DELLs with one host read.  A DELL made
+with ``nonzero_slots`` (the device setup's masked A_ff and A_fc, which
+keep all of A's slots and zero those outside their blocks) packs only
+its nonzero entries, by an index of its own.  The device
+setup packs its solve form before any CUDA graph captures it; a capture
+never packs.
 """
 
 from __future__ import annotations
@@ -26,6 +41,7 @@ import scipy.sparse as sp
 import torch
 
 from .dtypes import numpy_dtype
+from .ell import SORT_WINDOW, pack, sell_indices, sell_spmv_cuda
 
 PADCOL = 2**30
 OFFBIG = 2**29
@@ -40,18 +56,24 @@ _SPGEMM_CHUNK_LIMIT = 1 << 26
 # the per-row lookup of a restriction plan (restrict_plan) works on
 # [rows, K, max(K, Ka)] tensors; chunks keep them within this many
 _RESTRICT_CHUNK_LIMIT = 1 << 26
+PACKS = 0  # DELLs packed so far (a CUDA-graph capture packs none)
 
 
 class DELL:
     """Padded device sparse matrix: ``data``/``cols`` ``[n, K]``, live
     columns sorted ascending per row, dead slots (0, PADCOL); ``n_cols``
-    is the column count."""
+    is the column count.  ``nonzero_slots``: the packed copy holds only
+    the live slots whose value is not 0 (for a DELL that stores many
+    zeros in live slots)."""
 
-    def __init__(self, data, cols, n_cols: int):
+    def __init__(self, data, cols, n_cols: int,
+                 nonzero_slots: bool = False):
         self.data = data
         self.cols = cols
         self.n_cols = int(n_cols)
+        self.nonzero_slots = nonzero_slots
         self._safe = None
+        self._packed = None
 
     @property
     def shape(self):
@@ -76,11 +98,26 @@ class DELL:
             self._safe = torch.clamp(self.cols, max=self.n_cols - 1).long()
         return self._safe
 
+    @property
+    def packed(self):
+        """The packed copy the gather kernel reads (a ``Sell``): made at
+        the first product on a CUDA device, or by ``pack`` on any device;
+        None on the CPU until then."""
+        if self._packed is None and self.data.is_cuda:
+            pack_dells([self])
+        return self._packed
+
+    def pack(self):
+        """Make the packed copy (on the DELL's device) and return it."""
+        pack_dells([self])
+        return self._packed
+
     def matvec(self, x):
-        """y = A @ x: one gather of x at the clamped columns, row sums."""
-        n, K = self.data.shape
-        g = x.index_select(0, self.safe_cols().reshape(-1)).reshape(n, K)
-        return (self.data * g).sum(dim=1)
+        """y = A @ x: the gather kernel over the packed copy on a CUDA
+        tensor, ``dell_spmv_plain`` on a CPU one."""
+        if x.is_cuda:
+            return sell_spmv_cuda(self.packed, x.contiguous())
+        return dell_spmv_plain(self, x)
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -94,7 +131,8 @@ class DELL:
         return (self.cols < PADCOL).sum(dim=1)
 
     def to(self, device) -> "DELL":
-        return DELL(self.data.to(device), self.cols.to(device), self.n_cols)
+        return DELL(self.data.to(device), self.cols.to(device), self.n_cols,
+                    self.nonzero_slots)
 
     @staticmethod
     def from_scipy(A, dtype=torch.float64, device="cuda") -> "DELL":
@@ -126,6 +164,80 @@ class DELL:
             shape=(n, self.n_cols))
         out.has_sorted_indices = True
         return out
+
+
+def dell_spmv_plain(M: DELL, x):
+    """Plain PyTorch DELL product: one gather of x at the clamped columns
+    (a dead slot multiplies a real entry by its 0) and row sums over all
+    K slots.  The CPU's product, and the device setup's own products of
+    operators that the solve form does not keep."""
+    n, K = M.data.shape
+    g = x.index_select(0, M.safe_cols().reshape(-1)).reshape(n, K)
+    return (M.data * g).sum(dim=1)
+
+
+def pack_dells(dells):
+    """Give each DELL of ``dells`` without one its packed copy, on its own
+    device.  The ``cols`` tensors not yet indexed get their packing
+    indexes (``sparse/ell.py::sell_indices``: row lengths
+    ``(cols < PADCOL).sum(1)``, width K, row stride K, slot stride 1,
+    ``choose_lanes`` of the nonzeros) with one host read a device, which
+    also checks that every row's live slots come before its dead ones
+    (ValueError if not: the index packs a row's first slots).  The index
+    is cached on ``cols``, so DELLs that share a cols tensor share it.  A
+    ``nonzero_slots`` DELL gets an index of its own in the same read,
+    over its live nonzero slots wherever they lie in the row.  Raises
+    RuntimeError inside a CUDA-graph capture (the read would break it):
+    pack before capturing."""
+    global PACKS
+    todo = {id(M): M for M in dells if M._packed is None}
+    if not todo:
+        return
+    if (torch.cuda.is_available()
+            and any(M.data.is_cuda for M in todo.values())
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("a DELL cannot be packed inside a CUDA-graph "
+                           "capture: pack it first (DELL.pack, pack_dells)")
+    # what needs an index, by device: a nonzero_slots DELL, or a cols
+    # tensor not indexed yet
+    by_device = {}
+    for M in todo.values():
+        if M.nonzero_slots:
+            by_device.setdefault(M.cols.device, {})[id(M)] = M
+        elif getattr(M.cols, "_sell_index", None) is None:
+            by_device.setdefault(M.cols.device, {})[id(M.cols)] = M.cols
+    own = {}
+    for items in by_device.values():
+        specs, order_bad = [], []
+        for item in items.values():
+            if isinstance(item, DELL):
+                # the live nonzero slots, in their order along the row
+                keep = (item.cols < PADCOL) & (item.data != 0)
+                K = keep.shape[1]
+                slot_of = torch.sort((~keep).to(torch.int8), dim=1,
+                                     stable=True).indices
+                specs.append((keep.sum(dim=1), K, None, K, 1, SORT_WINDOW,
+                              slot_of))
+                continue
+            live = item < PADCOL
+            K = item.shape[1]
+            specs.append((live.sum(dim=1), K, None, K, 1, SORT_WINDOW,
+                          None))
+            order_bad.append((live[:, 1:] & ~live[:, :-1]).any())
+        indexes, bad = sell_indices(
+            specs, torch.stack(order_bad) if order_bad else None)
+        if any(bad):
+            raise ValueError(
+                f"pack_dells: {sum(bad)} of {len(bad)} DELL patterns have "
+                "a dead slot (PADCOL) before a live one")
+        for (key, item), index in zip(items.items(), indexes):
+            if isinstance(item, DELL):
+                own[key] = index
+            else:
+                item._sell_index = index
+    for M in todo.values():
+        M._packed = pack(M, index=own.get(id(M)) or M.cols._sell_index)
+        PACKS += 1
 
 
 class ShardedDELL(DELL):

@@ -14,14 +14,18 @@ slice padded only to its own longest row and stored step-major, so that a
 warp reads 32 neighbouring slots at every step.  The packing index
 (``SellIndex``: slice offsets, the original row of each packed row, and
 each packed slot's flat position in the container's own storage) is built
-once per pattern and storage layout on the host (``sell_index``, cached
-on the ``SparsityPattern``), goes to each device once, and makes the
-packed copy with one gather; the container's own tensors stay as they
-are.  ``TELL.matvec`` and ``ELL.matvec`` launch the hand-written kernel
+from the row lengths with torch ops on the device, with one host read of
+its sizes (``sell_indices``), once per pattern and storage layout
+(``sell_index``, cached on the ``SparsityPattern``), and makes the packed
+copy with one gather; the container's own tensors stay as they are.
+``TELL.matvec`` and ``ELL.matvec`` launch the hand-written kernel
 ``csrc/sell_spmv.cu`` on a CUDA tensor, and on a CPU tensor run their
 plain versions (``tell_spmv_plain``, the slot loop; ELL's gather and row
-sum).  ``sell_spmv_plain`` walks the packed layout in the kernel's order
-and is what the card holds the kernel to, bit for bit.
+sum).  The device setup's ``DELL`` (``sparse/dell.py``), an ``[n, K]``
+layout with dead slots (0, PADCOL) after the live ones, packs by the same
+index and runs the same kernel.  ``sell_spmv_plain`` walks the packed
+layout in the kernel's order and is what the card holds the kernel to,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -97,57 +101,23 @@ class SellIndex:
     l`` of packed row ``s (32 / L) + r``.  The rows are sorted by length,
     longest first and stably, within each run of ``window`` rows (a
     multiple of 32), or over all n rows for ``None`` (SELL-C-sigma's
-    sigma; tools/torch_sell_lanes.py times both).
+    sigma; tools/torch_sell_lanes.py times both).  A row of length m
+    packs its slots 0 .. m - 1, so its entries must come before its
+    padding, unless a slot map names the storage slot of each entry.
 
-    Built with torch ops on the device of ``row_len`` (the pattern's row
-    lengths, int64, none above ``width``), with one read of the packed
-    size: the same index built by numpy on the host of an H100 machine
-    took about 12 s for the 2048^2 hierarchy's 122M nonzeros (PERF.md)."""
+    Built by ``sell_indices`` with torch ops on the device of the row
+    lengths, with one read of the packed sizes: the same index built by
+    numpy on the host of an H100 machine took about 12 s for the 2048^2
+    hierarchy's 122M nonzeros (PERF.md)."""
 
-    def __init__(self, row_len, width: int, lanes: int, row_stride: int,
-                 slot_stride: int, window: int | None = SORT_WINDOW):
-        dev = row_len.device
-        n = row_len.shape[0]
-        rows_per = WARP // lanes
-        if window is None:
-            run = torch.zeros(n, dtype=torch.int64, device=dev)
-        else:
-            if window <= 0 or window % WARP:
-                raise ValueError(f"sort window {window}: a positive "
-                                 f"multiple of {WARP}")
-            run = torch.div(torch.arange(n, device=dev), window,
-                            rounding_mode="floor")
-        order = torch.sort(run * (width + 1) + (width - row_len),
-                           stable=True).indices
-        n_slices = -(-n // rows_per)
-        pad = n_slices * rows_per - n
-        rows = F.pad(order, (0, pad), value=-1)
-        lens = F.pad(row_len[order], (0, pad))
-        # the first row of a slice is its longest
-        self.steps = torch.div(lens[::rows_per] + lanes - 1, lanes,
-                               rounding_mode="floor")
-        self.slice_ptr = F.pad(torch.cumsum(self.steps * WARP, 0), (1, 0))
-        blocks, self.max_steps = (
-            torch.stack([self.steps.sum(), self.steps.max()]).tolist()
-            if n_slices else (0, 0))
-        slice_of = torch.repeat_interleave(
-            torch.arange(n_slices, device=dev), self.steps,
-            output_size=blocks)
-        step = torch.arange(blocks, device=dev) - torch.repeat_interleave(
-            torch.div(self.slice_ptr[:-1], WARP, rounding_mode="floor"),
-            self.steps, output_size=blocks)
-        lane = torch.arange(WARP, device=dev)
-        sub = lane % rows_per
-        row = rows.view(n_slices, rows_per)[slice_of][:, sub]
-        slot = step[:, None] * lanes + torch.div(lane, rows_per,
-                                                 rounding_mode="floor")
-        keep = slot < lens.view(n_slices, rows_per)[slice_of][:, sub]
-        src = torch.where(keep, row * row_stride + slot * slot_stride,
-                          -1).reshape(-1)
-        last = (n - 1) * row_stride + (width - 1) * slot_stride
-        self.src = src.to(torch.int32) if last < 2**31 else src
-        self.row_of = rows.to(torch.int32)
+    def __init__(self, slice_ptr, row_of, steps, src, lanes: int,
+                 max_steps: int):
+        self.slice_ptr = slice_ptr
+        self.row_of = row_of
+        self.steps = steps
+        self.src = src
         self.lanes = lanes
+        self.max_steps = max_steps
 
     @property
     def n_slices(self) -> int:
@@ -157,6 +127,110 @@ class SellIndex:
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
             self.slice_ptr, self.row_of, self.steps, self.src))
+
+
+class _SellPlan:
+    """The first half of a ``SellIndex``, device work alone: the rows'
+    order and, for each candidate lane count (``lanes``, or each of
+    ``LANES`` for None), each slice's steps.  ``sizes`` holds what the
+    host reads before the second half: the nonzeros, then the total and
+    the largest steps of each candidate."""
+
+    def __init__(self, row_len, width: int, lanes: int | None,
+                 window: int | None):
+        dev = row_len.device
+        n = row_len.shape[0]
+        if window is None:
+            run = torch.zeros(n, dtype=torch.int64, device=dev)
+        else:
+            if window <= 0 or window % WARP:
+                raise ValueError(f"sort window {window}: a positive "
+                                 f"multiple of {WARP}")
+            run = torch.div(torch.arange(n, device=dev), window,
+                            rounding_mode="floor")
+        self.order = torch.sort(run * (width + 1) + (width - row_len),
+                                stable=True).indices
+        self.lens = row_len[self.order]
+        self.n = n
+        self.lanes = LANES if lanes is None else (lanes,)
+        self.steps = {}
+        zero = row_len.new_zeros(())
+        sizes = [row_len.sum()]
+        for L in self.lanes:
+            rows_per = WARP // L
+            lens = F.pad(self.lens, (0, -(-n // rows_per) * rows_per - n))
+            # the first row of a slice is its longest
+            steps = torch.div(lens[::rows_per] + L - 1, L,
+                              rounding_mode="floor")
+            self.steps[L] = steps
+            sizes += ([steps.sum(), steps.max()] if steps.numel()
+                      else [zero, zero])
+        self.sizes = torch.stack(sizes)
+
+    def index(self, sizes, row_stride: int, slot_stride: int,
+              width: int, slot_of=None) -> SellIndex:
+        """The index, from ``sizes`` as the host read them: its lanes
+        (the one candidate, or ``choose_lanes`` of the nonzeros), the
+        slices' offsets and each packed slot's source.  ``slot_of``
+        ([n, width] int64, optional): the storage slot of each row's
+        j-th entry, where the entries are not the row's first slots."""
+        n = self.n
+        lanes = (self.lanes[0] if len(self.lanes) == 1
+                 else choose_lanes(int(sizes[0]), n))
+        at = 1 + 2 * self.lanes.index(lanes)
+        blocks, max_steps = int(sizes[at]), int(sizes[at + 1])
+        dev = self.order.device
+        rows_per = WARP // lanes
+        steps = self.steps[lanes]
+        n_slices = steps.shape[0]
+        pad = n_slices * rows_per - n
+        rows = F.pad(self.order, (0, pad), value=-1)
+        lens = F.pad(self.lens, (0, pad))
+        slice_ptr = F.pad(torch.cumsum(steps * WARP, 0), (1, 0))
+        slice_of = torch.repeat_interleave(
+            torch.arange(n_slices, device=dev), steps, output_size=blocks)
+        step = torch.arange(blocks, device=dev) - torch.repeat_interleave(
+            torch.div(slice_ptr[:-1], WARP, rounding_mode="floor"), steps,
+            output_size=blocks)
+        lane = torch.arange(WARP, device=dev)
+        sub = lane % rows_per
+        row = rows.view(n_slices, rows_per)[slice_of][:, sub]
+        slot = step[:, None] * lanes + torch.div(lane, rows_per,
+                                                 rounding_mode="floor")
+        keep = slot < lens.view(n_slices, rows_per)[slice_of][:, sub]
+        if slot_of is not None:
+            slot = slot_of[row.clamp(min=0),
+                           slot.clamp(max=max(slot_of.shape[1] - 1, 0))]
+        src = torch.where(keep, row * row_stride + slot * slot_stride,
+                          -1).reshape(-1)
+        last = (n - 1) * row_stride + (width - 1) * slot_stride
+        return SellIndex(slice_ptr, rows.to(torch.int32), steps,
+                         src.to(torch.int32) if last < 2**31 else src,
+                         lanes, max_steps)
+
+
+def sell_indices(specs, check=None):
+    """The packing indexes of several patterns with one host read for all
+    of them: ``specs`` a list of (row lengths [n] int64, width, lanes or
+    None, row stride, slot stride, window, slot map or None: see
+    ``_SellPlan.index``), every row no longer than its width, all on one
+    device; ``check`` an optional integer tensor there, read in the same
+    copy.  Returns (the ``SellIndex`` of each spec, ``check``'s values as
+    a list)."""
+    plans = [_SellPlan(row_len, width, lanes, window)
+             for row_len, width, lanes, _, _, window, _ in specs]
+    parts = [p.sizes for p in plans]
+    if check is not None:
+        parts.append(check.reshape(-1).to(torch.int64))
+    got = torch.cat(parts).tolist() if parts else []
+    out, at = [], 0
+    for plan, (_, width, _, row_stride, slot_stride, _, slot_of) in zip(
+            plans, specs):
+        k = plan.sizes.numel()
+        out.append(plan.index(got[at:at + k], row_stride, slot_stride,
+                              width, slot_of))
+        at += k
+    return out, got[at:]
 
 
 def sell_index(M, lanes: int | None = None, device=None,
@@ -186,16 +260,17 @@ def sell_index(M, lanes: int | None = None, device=None,
             raise ValueError(f"{type(M).__name__} storage "
                              f"{tuple(M.data.shape)} does not hold its "
                              f"pattern ({pat.shape[0]} rows, K={pat.K})")
-        index = SellIndex(torch.as_tensor(row_len, device=device), k_store,
-                          lanes, *strides, window=window)
+        (index,), _ = sell_indices([(torch.as_tensor(row_len, device=device),
+                                     k_store, lanes, *strides, window,
+                                     None)])
         pat._packs[key] = index
     return index
 
 
 class Sell:
-    """The packed copy of a TELL or ELL on one device: ``data`` [P] values
-    and ``cols`` [P] int32 columns in ``index``'s order (0 and 0 in
-    pads), with the index's ``slice_ptr``, ``row_of`` and ``steps``."""
+    """The packed copy of a TELL, ELL or DELL on one device: ``data`` [P]
+    values and ``cols`` [P] int32 columns in ``index``'s order (0 and 0
+    in pads), with the index's ``slice_ptr``, ``row_of`` and ``steps``."""
 
     def __init__(self, index: SellIndex, data, cols, shape):
         self.index = index
@@ -218,8 +293,8 @@ class Sell:
 
 def pack(M, lanes: int | None = None, index: SellIndex | None = None) -> Sell:
     """The packed copy of container ``M`` on its own device, by ``index``
-    (``sell_index(M, lanes)`` by default): one gather of its values and
-    one of its columns, pads set to 0."""
+    (``sell_index(M, lanes)`` by default; a DELL passes its own): one
+    gather of its values and one of its columns, pads set to 0."""
     index = index or sell_index(M, lanes)
     src = index.src
     if src.device != M.data.device:

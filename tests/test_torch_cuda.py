@@ -781,3 +781,125 @@ def test_graph_kernel_nodes_equal_counted_on_card(monkeypatch):
     for key, prog in pc._programs.items():
         assert prog.graph_kernels() == prog.counted(), key[:4]
         assert prog.counted()["dia_spmv_kernel"] > 0, key[:4]
+
+
+# ~~~~~~~~~~ the device-built hierarchies' DELL on the gather kernel ~~~~~~~~~~
+
+def _device_built(dev, kind, dtype=torch.float32):
+    """(matrix, PCAIR set up on the card by ``setup_device``): the bench's
+    options on adv_diff_2d(256), or FV upwind advection on a 2 x 32^2
+    triangle mesh (every operator a DELL)."""
+    from torch_cases import tri_mesh
+
+    if kind == "256^2":
+        A = tpf.adv_diff_2d(256)
+        opts = tpf.AIROptions().replace(**_BENCH)
+    else:
+        A = tpf.fv_upwind_advection(*tri_mesh(32, seed=2))
+        opts = tpf.AIROptions(a_lump=True)
+    pc = tpf.PCAIR(opts, dtype=dtype, device=dev)
+    pc.setup_device(A)
+    return A, pc
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-14)])
+def test_dell_kernel_equals_plain_on_card(dtype, tol):
+    """Every DELL of a device-built solve form is packed by the setup,
+    and each product launches the gather kernel once, equal to
+    ``sell_spmv_plain`` over the packed copy bit for bit and within
+    ``tol`` of max |y| of the DELL's plain gather and row sum: on the
+    256^2 bench form and on an FV mesh's, in f32 and f64 (a copy on the
+    same cols shares the index, unless it packs its nonzeros alone)."""
+    from pflare_tpu_torch.air.device_setup import solve_form_dells
+    from pflare_tpu_torch.sparse import DELL
+    from pflare_tpu_torch.sparse import ell as tell
+    from pflare_tpu_torch.sparse.dell import dell_spmv_plain
+
+    dev = _card()
+    rng = np.random.default_rng(14)
+    for kind in ("256^2", "FV"):
+        _, pc = _device_built(dev, kind)
+        dells = solve_form_dells(pc.upload())
+        assert dells and all(M._packed is not None for M in dells), kind
+        for M in dells:
+            D = DELL(M.data.to(dtype), M.cols, M.n_cols, M.nonzero_slots)
+            x = torch.as_tensor(rng.standard_normal(M.n_cols), dtype=dtype,
+                                device=dev)
+            D.pack()
+            launches = tell.KERNEL_LAUNCHES
+            y = D.matvec(x)
+            assert tell.KERNEL_LAUNCHES == launches + 1
+            assert (D.packed.index is M.packed.index) != M.nonzero_slots
+            assert torch.equal(y, tell.sell_spmv_plain(D.packed, x)), kind
+            ref = dell_spmv_plain(D, x)
+            assert float((y - ref).abs().max()) <= tol * float(
+                ref.abs().max()), kind
+
+
+def test_device_built_graphs_pack_nothing_on_card(monkeypatch):
+    """A ``jit=True`` ``solve_device`` of a device-built FV form captures
+    and replays with no DELL packed in the capture; the replay equals the
+    eager solve bit for bit; each captured graph's gather-kernel nodes
+    equal what a replay adds to ``ell.KERNEL_LAUNCHES``; a pack inside a
+    capture raises."""
+    from pflare_tpu_torch.sparse import DELL
+    from pflare_tpu_torch.sparse import dell as tdell
+    from pflare_tpu_torch.sparse import ell as tell
+    from pflare_tpu_torch.utils import graphs
+
+    dev = _card()
+    monkeypatch.setattr(graphs, "KEEP_GRAPHS", True)
+    A, pc = _device_built(dev, "FV")
+    b = np.random.default_rng(3).standard_normal(A.shape[0])
+    packs = tdell.PACKS
+    for _ in range(3):
+        x, norms = pc.solve_device(b, max_it=6)
+    assert tdell.PACKS == packs
+    xe, ne = _eager(pc, lambda: pc.solve_device(b, max_it=6))
+    assert torch.equal(x, xe) and torch.equal(norms, ne)
+    assert len(pc._programs) == 1
+    for _, prog in pc._programs.items():
+        counted = prog.counted()
+        assert prog.graph_kernels() == counted
+        assert counted["sell_spmv_kernel"] > 0
+    before = tell.KERNEL_LAUNCHES
+    pc.solve_device(b, max_it=6)
+    assert tell.KERNEL_LAUNCHES - before == counted["sell_spmv_kernel"]
+    M = DELL.from_scipy(A, dtype=torch.float32, device=dev)
+    ones = torch.ones(A.shape[1], device=dev)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            M.matvec(ones)
+    torch.cuda.synchronize()
+    assert M._packed is None
+    assert torch.equal(M.matvec(ones), tell.sell_spmv_plain(M.packed, ones))
+
+
+def test_device_built_sharded_solve_on_card():
+    """A 4-shard ``solve_device(mesh=)`` of a device-built FV form: the
+    stacked DELL blocks are packed where they are built (before any
+    capture), the replay equals the eager sharded solve bit for bit with
+    the same launches, and both agree with the serial solve to 1e-5 of
+    each norm."""
+    from pflare_tpu_torch.parallel import make_mesh
+    from pflare_tpu_torch.sparse import dell as tdell
+
+    dev = _card()
+    A, pc = _device_built(dev, "FV")
+    b = np.random.default_rng(4).standard_normal(A.shape[0])
+    mesh = make_mesh(4)
+    _, serial = pc.solve_device(b, max_it=6)
+    pc.solve_device(b, max_it=6, mesh=mesh)
+    packs = tdell.PACKS
+    before = _counts()
+    x, norms = pc.solve_device(b, max_it=6, mesh=mesh)
+    launches = np.subtract(_counts(), before)
+    assert tdell.PACKS == packs
+    before = _counts()
+    xe, ne = _eager(pc, lambda: pc.solve_device(b, max_it=6, mesh=mesh))
+    assert (launches == np.subtract(_counts(), before)).all()
+    assert launches[2] > 0
+    assert torch.equal(x, xe) and torch.equal(norms, ne)
+    assert torch.allclose(norms, serial, rtol=1e-5, atol=0)
