@@ -170,8 +170,8 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     (``PCAIR.on`` before the upload): residual histories within phase
     10's rule, the iterations beside the reference's caps;
 15. the row mesh (``pflare_tpu_torch.parallel``, every shard on the
-    card): (a) ``setup(A, mesh=make_mesh(8))`` at 512^2 f64 against the
-    serial setup, for the bench options and POWER inverses with the
+    card but in (d)): (a) ``setup(A, mesh=make_mesh(8))`` at 512^2 f64
+    against the serial setup, for the bench options and POWER inverses with the
     ideal W (``PHASE15_SETS``): on the curved-velocity sibling, which
     puts no entry on a decision's edge, markers equal on every level, R
     within 1e-11 of its largest entry, every W/Z/AP/RAP product
@@ -192,7 +192,16 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     14 (a)'s FV hierarchy on 4 shards: the top a ``HaloELL`` on the
     banded kernel, neighbour-only exchanges on the top and the
     repartitioned levels, x within 1e-5 of the serial solve's, the true
-    residual <= 1e-4;
+    residual <= 1e-4; (d) with two or more cards visible
+    (else one line says it did not run), the row mesh over them
+    (``phase15d``): (b)'s 2048^2 solve on 4 shards over min(4, cards)
+    cards against the one-card mesh and serial (eager; ``jit=True``
+    raises there), norms within 1e-5 of serial, each shard's DIA and
+    banded blocks on its own card and launched there as often as their
+    operator's products, the bytes across cards an iteration by level,
+    wall and busy time by card; and (a)'s 8-shard 512^2 f64 setup over
+    the cards against the one-card mesh: markers equal on every level,
+    R within 1e-11, equal right GMRES iterations;
 16. the example and notebook twins (examples/torch/, notebooks/torch/),
     each loaded in this process and run on the card with the launch
     counters at 0 before it (``PHASE16_EXAMPLES``, ``PHASE16_NOTEBOOKS``):
@@ -964,6 +973,9 @@ def main() -> int:
                                          plain_matvec, profile_solve, err)
     del fv
     print(f"# phase 15: {t_phase15:.3f} s")
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512, pc2k, b2k)
 
     # ~~~~~~~~~~ 16. the example and notebook twins ~~~~~~~~~~
     twin_runs, t_phase16 = phase16(np, torch, tpf, tdia, tbanded, dev,
@@ -3221,6 +3233,233 @@ def phase15(np, torch, tpf, tdia, tbanded, dev, A512, pc2k, A2k, b2k, fv,
     t_c = time.perf_counter() - t_c
     print(f"# phase 15 (a) {t_a:.3f} s, (b) {t_b:.3f} s, (c) {t_c:.3f} s")
     return out, time.perf_counter() - t_phase, mesh_b
+
+
+def card_busy(torch, fn, label):
+    """``fn()`` once under torch.profiler (device activity), to
+    completion: its wall seconds and {card index: busy ms} from the
+    kernels and copies the trace holds for each card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        device_sync_read(*fn())
+        wall = time.perf_counter() - t0
+    busy = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            busy[evt.device_index] = (busy.get(evt.device_index, 0.0)
+                                      + evt.self_device_time_total / 1e3)
+    print(f"# {label} profiled: wall {wall:.4f} s, busy by card "
+          + ", ".join(f"cuda:{k} {v:.3f} ms ({1 - v / 1e3 / wall:.1%} idle)"
+                      for k, v in sorted(busy.items())), flush=True)
+    return wall, busy
+
+
+def phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512, pc2k, b2k):
+    """Phase 15 (d): the row mesh over several cards (``cards``, the
+    visible ones; with fewer than two it prints that it did not run and
+    returns None).  (1) phase 7's 2048^2 f32 hierarchy on 4 shards over
+    min(4, cards) cards against the same 4 shards on ``dev`` alone and
+    the serial solve (serial, one card twice, cards twice, serial;
+    eager, since ``jit=True`` raises on several cards, which is
+    checked): norms within 1e-5 of the serial ones, x bit for bit the
+    one-card mesh's, each shard's DIA and
+    banded blocks on its own card and launched there as often as its
+    operator's products (the per-card launch counters), the bytes that
+    crossed cards an iteration by level (``Mesh.log``'s ``peer``), wall
+    and busy time by card under torch.profiler; (2) phase 15 (a)'s
+    8-shard 512^2 f64 distributed setup over the cards against the same
+    8 shards on ``dev``: markers equal on every level, R within 1e-11 of
+    its largest entry, equal right GMRES iterations.  Returns its
+    numbers."""
+    from pflare_tpu_torch.parallel import HaloELL, make_mesh
+    from pflare_tpu_torch.parallel.mesh import tensor_device
+    from pflare_tpu_torch.sparse import DIA, BandedSpMV
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    if len(cards) < 2:
+        print(f"# phase 15 (d) not run ({len(cards)} card visible): the "
+              "row mesh over several cards needs two", flush=True)
+        return None
+    t_phase = time.perf_counter()
+    use = list(cards[:4])
+    peer = {f"{a}->{b}": bool(torch.cuda.can_device_access_peer(a.index,
+                                                                b.index))
+            for a in use for b in use if a != b} if dev.type == "cuda" \
+        else {}
+    print(f"# phase 15 (d) {len(cards)} cards visible, {len(use)} used; "
+          f"peer access {peer}", flush=True)
+    out = {"cards": [str(c) for c in use], "peer_access": peer}
+
+    # (1) the 2048^2 solve on 4 shards over the cards
+    one = make_mesh(PHASE15_SHARDS["solve"], device=dev)
+    multi = make_mesh(devices=[use[s * len(use) // 4] for s in range(4)])
+    require(multi.split, "phase 15 (d): the mesh is not split")
+    try:
+        pc2k.solve_device(b2k, max_it=10, mesh=multi)
+        raised = None
+    except NotImplementedError as exc:
+        raised = str(exc)
+    require(not pc2k.jit or not dev.type == "cuda" or raised,
+            "phase 15 (d): jit=True over several cards did not raise")
+
+    def zero():
+        for mod in (tdia, tbanded):
+            mod.KERNEL_LAUNCHES = 0
+            mod.LAUNCHES_BY_DEVICE.clear()
+
+    def solve(mesh):
+        zero()
+        if mesh is not None:
+            mesh.reset_log()
+        t0 = time.perf_counter()
+        x, norms = pc2k.solve_device(b2k, max_it=10, ksp="richardson",
+                                     mesh=mesh)
+        device_sync_read(x, norms)
+        return (norms.cpu().numpy(), time.perf_counter() - t0,
+                {k: dict(m.LAUNCHES_BY_DEVICE) for k, m in
+                 (("dia", tdia), ("banded", tbanded))},
+                None if mesh is None else
+                {k: list(v) for k, v in mesh.log.items()}, x)
+
+    jit, pc2k.jit = pc2k.jit, False
+    try:
+        # a PCAIR holds one mesh's sharded state: each mesh's runs
+        # together, its state built before them
+        runs = {}   # tag: [(norms, s, launches by card, log, x), ...]
+        runs["serial"] = [solve(None)]
+        pc2k._distributed_state(one)
+        runs["one card"] = [solve(one), solve(one)]
+        wall_1, busy_1 = card_busy(torch, lambda: pc2k.solve_device(
+            b2k, max_it=10, ksp="richardson", mesh=one),
+            "phase 15 (d) 2048^2 on 4 shards on one card (eager)")
+        st = pc2k._distributed_state(multi)
+        ops = [("top", st.top)] + [
+            (f"level {i} {k}", getattr(v, "mat", v))
+            for i, lev in enumerate(st.levels) for k, v in lev.items()]
+        ops = list({id(op): (label, op) for label, op in ops
+                    if hasattr(op, "blocks")}.values())
+        holders = set()
+        for _, op in ops:
+            for s, blk in enumerate(op.blocks):
+                if isinstance(blk, (DIA, BandedSpMV)):
+                    require(blk.data.device
+                            == tensor_device(multi.devices[s]),
+                            f"phase 15 (d): shard {s}'s block on "
+                            f"{blk.data.device}")
+                    holders.add(multi.devices[s])
+        require(holders == set(use), f"phase 15 (d): DIA and banded "
+                f"shard blocks on {holders}, cards {use}")
+        runs["cards"] = [solve(multi), solve(multi)]
+        wall_m, busy_m = card_busy(torch, lambda: pc2k.solve_device(
+            b2k, max_it=10, ksp="richardson", mesh=multi),
+            "phase 15 (d) 2048^2 on 4 shards over the cards (eager)")
+        runs["serial"].append(solve(None))
+    finally:
+        pc2k.jit = jit
+    n_s, n_1, n_m = (runs[t][0][0] for t in ("serial", "one card", "cards"))
+    for tag, n_x in (("cards", n_m), ("one card", n_1)):
+        require(np.all(np.abs(n_x - n_s) <= MESH_HISTORY_RTOL * n_s),
+                f"phase 15 (d): {tag} norms {n_x / n_s[0]} against serial "
+                f"{n_s / n_s[0]}")
+    _, _, launches, log, x_m = runs["cards"][0]
+    # every row sums as on one card (the stacked blocks take one card's
+    # lanes), so only the norms' partial sums differ
+    same_x = bool(torch.equal(x_m, runs["one card"][0][4]))
+    require(same_x, "phase 15 (d): x over the cards differs from the "
+            "one-card mesh's")
+    # each card launches its own shards' blocks once a product of their
+    # operator; the controller also runs the whole levels
+    want = {"dia": {}, "banded": {}}
+    for _, op in ops:
+        calls = (log.get((op.label, "ppermute"), [0])[0] // 2
+                 if isinstance(op, HaloELL)
+                 else log.get((op.label, "all_gather"), [0])[0])
+        for s, blk in enumerate(op.blocks):
+            kind = ("dia" if isinstance(blk, DIA) else "banded"
+                    if isinstance(blk, BandedSpMV) else None)
+            if kind:
+                idx = blk.data.device.index
+                want[kind][idx] = want[kind].get(idx, 0) + calls
+    for kind in ("dia", "banded"):
+        for idx, n in want[kind].items():
+            got = launches[kind].get(idx, 0)
+            require(got == n if idx != dev.index else got >= n,
+                    f"phase 15 (d): {kind} launches on cuda:{idx} {got}, "
+                    f"its shards' products {n}")
+    per_level = {}
+    for (label, kind), (calls, nbytes) in log.items():
+        if kind == "peer":
+            key = label.rsplit(" ", 1)[0] if label.startswith("level") \
+                else label
+            c, b = per_level.get(key, (0, 0))
+            per_level[key] = (c + calls / 10, b + nbytes / 10)
+    walls = {tag: " / ".join(f"{r[1]:.4f}" for r in rs)
+             for tag, rs in runs.items()}
+    print(f"# phase 15 (d) 2048^2 f32 Richardson 10 its on 4 shards over "
+          f"{len(use)} cards (eager; jit=True raises: {bool(raised)}): "
+          f"wall to completion serial {walls['serial']} s, one card "
+          f"{walls['one card']} s, cards {walls['cards']} s; norms within "
+          f"{np.max(np.abs(n_m - n_s) / n_s):.3e} of serial (one card "
+          f"{np.max(np.abs(n_1 - n_s) / n_s):.3e}), x bit for bit the "
+          f"one-card mesh's: {same_x}; launches by card "
+          f"{launches}, the shards' products {want}; bytes across cards an "
+          "iteration " + ", ".join(f"{k} {c:.1f} copies {b / 1e6:.4f} MB"
+                                   for k, (c, b) in sorted(
+                                       per_level.items())), flush=True)
+    out["solve"] = {"walls_s": walls, "x_equals_one_card": same_x,
+                    "launches_by_card": launches,
+                    "shard_products_by_card": want,
+                    "peer_per_iteration": per_level,
+                    "profiled_wall_s": wall_m, "busy_ms_by_card": busy_m,
+                    "one_card_profiled_wall_s": wall_1,
+                    "one_card_busy_ms": busy_1}
+
+    # (2) the 8-shard 512^2 f64 distributed setup over the cards
+    b512 = np.random.default_rng(3).standard_normal(A512.shape[0])
+    opts = bench_options(tpf).replace(**PHASE15_SETS[0][1])
+    got = []
+    for mesh in (make_mesh(PHASE15_SHARDS["setup"], device=dev),
+                 make_mesh(devices=[use[s * len(use) // 8]
+                                    for s in range(8)])):
+        pc = tpf.PCAIR(opts, dtype=torch.float64, device=dev)
+        t0 = time.perf_counter()
+        pc.setup(A512, mesh=mesh)
+        t_set = time.perf_counter() - t0
+        # the host levels, read before the solve's upload releases them
+        levels = [(lv.fine, lv.coarse, lv.R.copy())
+                  for lv in pc.hierarchy.levels]
+        res = pc.solve(b512, side="right", rtol=1e-10, max_it=60)
+        got.append((levels, t_set, res, mesh))
+    (h1, t1, r1, _), (hm, tm, rm, mm) = got
+    require(len(h1) == len(hm), f"phase 15 (d): levels {len(hm)} against "
+            f"{len(h1)}")
+    r_rel = 0.0
+    for i, ((f1, c1, R1), (fm, cm, Rm)) in enumerate(zip(h1, hm)):
+        require(np.array_equal(f1, fm) and np.array_equal(c1, cm),
+                f"phase 15 (d): level {i} markers differ")
+        r_rel = max(r_rel, abs(R1 - Rm).max() / abs(R1).max())
+    require(r_rel <= 1e-11 and r1.converged and rm.converged
+            and r1.iterations == rm.iterations,
+            f"phase 15 (d): R within {r_rel:.3e}, right GMRES "
+            f"{rm.iterations} its against {r1.iterations}")
+    setup_peer = {k: v for k, v in mm.traffic().items()}
+    print(f"# phase 15 (d) 512^2 f64 setup on 8 shards over {len(use)} "
+          f"cards: {len(hm)} levels, markers equal on every level, "
+          f"R within {r_rel:.3e} of its largest entry, right GMRES "
+          f"{rm.iterations} its (one card {r1.iterations}); setup "
+          f"{tm:.3f} s (one card {t1:.3f} s); exchanges {setup_peer}",
+          flush=True)
+    out["setup"] = {"levels": len(hm), "r_rel": r_rel,
+                    "iterations": rm.iterations, "setup_s": tm,
+                    "one_card_setup_s": t1, "traffic": setup_peer}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 15 (d): {out['seconds']:.3f} s", flush=True)
+    return out
 
 
 # ~~~~~~~~~~ phase 16: the example and notebook twins ~~~~~~~~~~

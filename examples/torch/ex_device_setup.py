@@ -12,10 +12,13 @@ twin of examples/ex_device_setup.py.
    processor-agglomeration schedule, the banded halo Krylov matvec
    (reference: src/AIR_MG_Setup.F90:645-907, src/Repartition.F90).
 
-The port's row mesh is single-controller: ``make_mesh(8)`` puts 8 shards
-on one device (``cuda:0``), each with its own row block, and every halo
-exchange is a counted device copy.  The whole script runs in float32, as
-the JAX example does.
+``make_mesh(8)`` puts 8 row shards on one device (``cuda:0``), each with
+its own row block, and every halo exchange is a counted device copy;
+``make_mesh(8, devices=["cuda:0", ..., "cuda:3"])`` would spread them
+over four cards, two a card, each card holding its own shards' blocks,
+the exchanges between cards peer copies and the sharded solve eager
+(``jit=False``).  The whole script runs in float32, as the JAX example
+does.
 
 Run: python examples/torch/ex_device_setup.py [grid_size] [--device cpu]
 """

@@ -5,12 +5,15 @@
 # with PetscSF halo exchanges and a custom-reduction TSQR (tutorial
 # counterpart of the reference's notebooks/; design map in SURVEY.md §2.4).
 # The PyTorch twin of notebooks/04_parallel_mesh.py keeps that
-# decomposition as a single-controller *row mesh*: `make_mesh(8)` cuts the
-# rows into 8 blocks ("shards"), one `torch.device` each.  On one card all
-# 8 shards live on `cuda:0`; every exchange between shards -- the halo
-# slabs of a banded partition, the all-gather of a vector, the R factors
-# of a TSQR -- is a device copy, counted in the mesh's log (`mesh.log`),
-# where the TPU version has `ppermute` shifts and `psum`s over ICI.
+# decomposition as a *row mesh*: `make_mesh(8)` cuts the rows into 8
+# blocks ("shards"), one `torch.device` each, here all 8 on `cuda:0`;
+# `make_mesh(8, devices=[...])` spreads them over several cards in
+# contiguous runs, each card holding its own shards' blocks.  Every
+# exchange between shards -- the halo slabs of a banded partition, the
+# all-gather of a vector, the R factors of a TSQR -- is a copy (between
+# cards a peer copy), counted in the mesh's log (`mesh.log`; the bytes
+# between cards under `"peer"`), where the TPU version has `ppermute`
+# shifts and `psum`s over ICI.
 #
 # Set `device = "cpu"` in the parameters cell to run it without a card.
 

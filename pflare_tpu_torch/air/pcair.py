@@ -35,7 +35,7 @@ from ..solvers.krylov import SolveResult, fgmres, gmres, richardson
 from ..utils import graphs
 from ..utils.timers import print_timers, timer
 from .hierarchy import DeviceHierarchy, Hierarchy, setup_hierarchy
-from .smooth import _pad_to, vcycle_full, vcycle_kaskade
+from .smooth import vcycle_full, vcycle_kaskade
 from .stats import compute_stats, print_stats
 
 
@@ -409,16 +409,21 @@ class PCAIR:
         reference's one jitted ``run`` (pflare_tpu/air/pcair.py:460-466).
         Under full_smoothing_up_and_down the cycle is ``vcycle_full``, as
         in ``solve`` (the reference's solve_device runs the Kaskade cycle
-        there, pflare_tpu/air/pcair.py:452-458).  ``mesh``: a row mesh on
-        this PCAIR's device; the hierarchy is sharded over it
-        (``_distributed_state``), b and x0 are permuted, padded and
-        sharded, and x comes back cut to n in the caller's order."""
+        there, pflare_tpu/air/pcair.py:452-458).  ``mesh``: a row mesh
+        whose controller device is this PCAIR's; the hierarchy is sharded
+        over it (``_distributed_state``), b and x0 are permuted, padded
+        and sharded (over the mesh's devices where it has several), and x
+        comes back on this PCAIR's device cut to n in the caller's order.
+        On a mesh over several cards the solve runs eagerly: ``jit=True``
+        raises NotImplementedError there (see ``MULTI_CARD_GRAPHS``)."""
         if ksp == "richardson":
             solver = richardson_fixed
         elif ksp in ("gmres", "fgmres"):
             solver = gmres_right_fixed
         else:
             raise ValueError(f"unknown ksp {ksp!r}")
+        if self._graphed() and mesh is not None and mesh.split:
+            raise NotImplementedError(MULTI_CARD_GRAPHS)
         b = self._to_internal(self._vector(b))
         x0 = None if x0 is None else self._to_internal(self._vector(x0))
         n = b.shape[0]
@@ -453,15 +458,18 @@ class PCAIR:
         the all-gathered vector), the levels by ``shard_hierarchy`` and
         the V-cycle over them.  The full-smoothing form and a one-level
         hierarchy stay whole, their vectors cut to n and padded back."""
-        from ..parallel.mesh import _shard_op, padded_rows, shard_hierarchy
+        from ..parallel.mesh import (_shard_op, padded_rows,
+                                     shard_hierarchy, shard_vec,
+                                     tensor_device)
 
         dh = self.upload()
         if (self._dist is not None and self._dist[0] is mesh
                 and self._dist[1] is dh):
             return self._dist[2]
-        if torch.empty(0, device=self.device).device != mesh.device:
-            raise ValueError(f"the mesh's shards lie on {mesh.device}, this "
-                             f"PCAIR solves on {self.device}")
+        if tensor_device(self.device) != tensor_device(mesh.device):
+            raise ValueError(f"the mesh's controller device is "
+                             f"{mesh.device}, this PCAIR solves on "
+                             f"{self.device}")
         n = dh.top.shape[0]
         top = _shard_op(dh.top, mesh, padded_rows(n, mesh), "top")
         if dh.full_smoothing or not dh.levels:
@@ -470,7 +478,7 @@ class PCAIR:
             schedule = [1] * len(levels)
 
             def precond(r):
-                return _pad_to(whole(r[:n]), r.shape[0])
+                return shard_vec(whole(r[:n]), mesh)
         else:
             levels, coarse_inv, schedule = shard_hierarchy(
                 self.hierarchy, mesh, self.options, device_form=dh)
@@ -558,6 +566,16 @@ class PCAIR:
             self._injected_coeffs = {}
         self._injected_coeffs[level] = np.asarray(coeffs)
         return self
+
+
+# why PCAIR(jit=True) does not capture a solve over several cards
+MULTI_CARD_GRAPHS = (
+    "solve_device(mesh=) with jit=True on a mesh over several cards: "
+    "PyTorch's copy between cards makes the capturing stream wait on an "
+    "event of the other card's stream, recorded outside the capture, which "
+    "invalidates it (cudaErrorStreamCaptureInvalidated on H100s), and a "
+    "PyTorch CUDA graph's private memory pool serves only the capturing "
+    "card; pass jit=False (the eager solve) for a mesh over several cards")
 
 
 @dataclass

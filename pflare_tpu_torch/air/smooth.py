@@ -64,17 +64,33 @@ def _pad_to(v, n: int):
     """v zero-padded, or cut, to length n.  Levels sharded over a row mesh
     (parallel/mesh.py) carry padded row spaces whose pads hold zeros, so
     the vectors between levels are padded or cut to the next level's
-    (pflare_tpu/air/smooth.py:105-145)."""
+    (pflare_tpu/air/smooth.py:105-145).  A row-sharded vector of a split
+    mesh (``Rows``) is laid out anew over its devices."""
+    if not isinstance(v, torch.Tensor):
+        return v.fit(n)
     if v.shape[0] < n:
         return torch.cat([v, v.new_zeros(n - v.shape[0])])
     return v[:n]
+
+
+def _place_coarse(x, coarse, n: int):
+    """The first ``len(coarse)`` entries of x at rows ``coarse`` of a
+    zero vector of length n; on a level sharded over a split mesh
+    ``coarse`` is its ``CoarseMap``, which writes each device's rows."""
+    if not isinstance(coarse, torch.Tensor):
+        return coarse.place(x)
+    x_full = torch.zeros(n, dtype=x.dtype, device=x.device)
+    x_full.index_copy_(0, coarse, x[:coarse.shape[0]])
+    return x_full
 
 
 def vcycle_kaskade(levels, coarse_inv, r, smooth_order):
     """AIR preconditioner application M^-1 r (PETSc PC_MG_KASKADE
     semantics: no down smooths; RHS restricted down; smoothing only on the
     way up with a nonzero initial guess).  Each level's row space, padded
-    or not, is the length of its ``mask_f``; the result has r's length."""
+    or not, is the length of its ``mask_f``; the result has r's length.
+    On a split mesh the sharded levels' vectors are ``Rows``, the whole
+    levels' and the coarse solve's tensors on the controller device."""
     bs = [r]
     for lev in levels:
         b = _pad_to(bs[-1], lev["mask_f"].shape[0])
@@ -84,10 +100,8 @@ def vcycle_kaskade(levels, coarse_inv, r, smooth_order):
     x = coarse_inv.apply(bs[-1])
     for i in range(len(levels) - 1, -1, -1):
         lev = levels[i]
-        x_full = torch.zeros(lev["mask_f"].shape[0], dtype=x.dtype,
-                             device=x.device)
-        x_full.index_copy_(0, lev["coarse"], x[:lev["coarse"].shape[0]])
-        x = lev["P"].matvec(x_full)
+        x = lev["P"].matvec(_place_coarse(x, lev["coarse"],
+                                          lev["mask_f"].shape[0]))
         x = fc_point_richardson(lev, bs[i], x,
                                 _order_for_level(smooth_order, i))
     return _pad_to(x, r.shape[0])

@@ -43,27 +43,59 @@ def luby_rounds(gcols, measure, cf0, n_rounds: int, pmis: bool = False,
     same markers.  PMIS passes a negated measure and the caller flips the
     markers; the zero-measure value follows the host's pre-flip
     convention (reference: src/PMISR_Module.F90:398-437).  Nodes left
-    undecided become C.  With a row ``mesh`` each shard decides its own
-    rows (``ceil(n / S)`` of them) from the gathered state of the whole
-    graph, one all-gather of the new set and one of the decided nodes a
-    round, as the reference compiles the rounds SPMD over its mesh
-    (pflare_tpu/cf/splitting.py:114-152); every decision reads only its
-    row, so the markers are the same."""
+    undecided become C.  With a row ``mesh`` each device decides the rows
+    of its own shards (``ceil(n / S)`` a shard) from its copy of the
+    whole graph's state, one all-gather of the new set and one of the
+    decided nodes a round onto every device, as the reference compiles
+    the rounds SPMD over its mesh (pflare_tpu/cf/splitting.py:114-152);
+    every decision reads only its row, so the markers are the same.  The
+    markers are kept on the controller device."""
     n = measure.shape[0]
     if mesh is None:
         spans = [slice(0, n)]
+
+        def gathered(parts):
+            return parts
+
+        def put(t, g):
+            return t
     else:
         w = -(-n // mesh.size)
-        spans = [slice(s * w, min((s + 1) * w, n))
-                 for s in range(mesh.size) if s * w < n]
+        spans = [slice(min(g.start * w, n), min(g.stop * w, n))
+                 for g in mesh.groups]
 
-    def gathered(parts):
-        whole = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return whole if mesh is None else mesh.all_gather(whole, "luby")
+        def gathered(parts):
+            return mesh.all_gather(parts, "luby")
 
-    gidx = torch.arange(n, dtype=torch.int64, device=measure.device)
-    mask = gcols < PADCOL
-    safe = torch.clamp(gcols, max=n - 1).long()
+        def put(t, g):
+            return mesh._to_group(t, 0, g, "luby")
+
+    cf, assigned = _start(measure, cf0, pmis, zero_measure_c_point)
+    assigned = [put(assigned, g) for g in range(len(spans))]
+    # each device's rows of the graph and its copy of the measure
+    mask, safe, beats = [], [], []
+    for g, r in enumerate(spans):
+        g_r = put(gcols[r], g)
+        s_r = torch.clamp(g_r, max=n - 1).long()
+        mask.append(g_r < PADCOL)
+        safe.append(s_r)
+        beats.append(_beats(put(measure, g), r, s_r))
+    for _ in range(n_rounds):
+        in_set = gathered([
+            ~a[r] & ~(mk & ~a[sf] & b).any(dim=1)
+            for r, a, mk, sf, b in zip(spans, assigned, mask, safe, beats)])
+        cf = torch.where(in_set[0], F_POINT, cf)
+        # neighbours of the new set are decided (C at the end); the
+        # graph is symmetric, so a gather doubles as the scatter
+        assigned = gathered([
+            a[r] | s[r] | (mk & s[sf]).any(dim=1)
+            for r, a, s, mk, sf in zip(spans, assigned, in_set, mask, safe)])
+    return torch.where(cf == 0, C_POINT, cf)
+
+
+def _start(measure, cf0, pmis: bool, zero_measure_c_point: bool):
+    """The markers and decided nodes before the first round: the nodes
+    of zero measure take their value at once."""
     cf = cf0.to(torch.int32)
     assigned = cf != 0
     zero_nodes = ~assigned & (measure.abs() < 1)
@@ -71,22 +103,17 @@ def luby_rounds(gcols, measure, cf0, n_rounds: int, pmis: bool = False,
         zero_val = F_POINT if pmis else C_POINT
     else:
         zero_val = C_POINT if pmis else F_POINT
-    cf = torch.where(zero_nodes, zero_val, cf)
-    assigned = assigned | zero_nodes
-    beats = [(measure[r, None] > measure[safe[r]])
-             | ((measure[r, None] == measure[safe[r]])
-                & (gidx[r, None] > safe[r])) for r in spans]
-    for _ in range(n_rounds):
-        in_set = gathered([
-            ~assigned[r] & ~(mask[r] & ~assigned[safe[r]] & b).any(dim=1)
-            for r, b in zip(spans, beats)])
-        cf = torch.where(in_set, F_POINT, cf)
-        # neighbours of the new set are decided (C at the end); the
-        # graph is symmetric, so a gather doubles as the scatter
-        assigned = gathered([
-            assigned[r] | in_set[r] | (mask[r] & in_set[safe[r]]).any(dim=1)
-            for r in spans])
-    return torch.where(cf == 0, C_POINT, cf)
+    return torch.where(zero_nodes, zero_val, cf), assigned | zero_nodes
+
+
+def _beats(measure, rows: slice, safe):
+    """Whether each node of ``rows`` beats each of its neighbours
+    (``safe``, their indices): a larger measure, ties to the larger
+    index."""
+    mine = measure[rows, None]
+    idx = torch.arange(rows.start, rows.stop, device=measure.device)
+    return (mine > measure[safe]) | ((mine == measure[safe])
+                                     & (idx[:, None] > safe))
 
 
 def pmisr_device(cols, mask, measure, cf0, max_luby_steps: int = 3,

@@ -4,13 +4,17 @@ Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with nvcc for Hopper (``sm_90a``) into ``_build/lib<name>.so``
 inside this package, rebuilt when the source is newer, and loaded with
 ctypes.  Every C entry point launches on the stream it is given, does not
-synchronise, and returns ``cudaGetLastError()``; ``check`` turns a nonzero
-code into an exception.  Nothing here runs at import time: a machine
-without nvcc or a card imports this module and never calls it.
+synchronise, and returns ``cudaGetLastError()``; ``launch`` calls it under
+a device guard of the card that holds the operands (the CUDA runtime
+launches on the calling thread's current device, which need not be
+theirs on a machine with several cards) and turns a nonzero code into an
+exception.  Nothing here runs at import time: a machine without nvcc or
+a card imports this module and never calls it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import concurrent.futures
 import os
@@ -108,13 +112,17 @@ def load(name: str, src: str | None = None, tag: str = "",
     return lib
 
 
-def launch(name: str, dtype, *args, lib: ctypes.CDLL | None = None):
+def launch(name: str, dtype, device, *args,
+           lib: ctypes.CDLL | None = None):
     """Call the ``dtype`` (torch.float32 or torch.float64) entry point of
     kernel ``name`` (in ``lib``, a tagged build from ``load``, if given)
-    and raise if it returns a CUDA error."""
+    on ``device``, the card that holds the operands: under its device
+    guard, with its current stream as the last argument.  Raise if it
+    returns a CUDA error."""
     suffix = {torch.float32: "_f32", torch.float64: "_f64"}[dtype]
     lib = lib or load(name)
-    rc = getattr(lib, name + suffix)(*args)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name + suffix)(*args, stream_handle(device))
     if rc != 0:
         msg = getattr(lib, name + "_error_string")(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
@@ -123,3 +131,13 @@ def launch(name: str, dtype, *args, lib: ctypes.CDLL | None = None):
 def stream_handle(device) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on ``device``, as a C pointer."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def guard(device):
+    """The device guard of ``device``: its card made current for what
+    runs inside (a stream query, a capture check); nothing for a CPU
+    device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

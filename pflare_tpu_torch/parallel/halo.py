@@ -18,10 +18,13 @@ own block), so the DIA and banded kernels run once per active shard, on
 the shard's rows.  The gather containers (TELL, ELL, DELL) read x at
 any column, and each product costs one launch of the gather kernel
 ``csrc/sell_spmv.cu`` over the container's packed copy, whatever its
-length, so the shards' blocks stack into one container over the shards'
-windows laid end to end: one product for the whole mesh.  A stacked
-DELL on a card is packed where it is built, so a captured sharded solve
-packs nothing.
+length, so the blocks of a device's shards stack into one container over
+their windows laid end to end: one product for each device of the mesh
+(one for the whole mesh on one card).  A stacked DELL on a card is packed
+where it is built, so a captured sharded solve packs nothing.
+Every block lies on its shard's device (cut on the controller device,
+then moved there), so on a split mesh each card launches its own shards'
+products on the ``Rows`` of its own rows (parallel/mesh.py).
 ``RowShardedOp`` is the fallback when the band check fails: each shard
 reads the all-gathered vector, at column base ``s * w``.  ``from_scipy``
 cuts the blocks from a host matrix; ``from_op`` cuts the same blocks
@@ -36,18 +39,21 @@ import torch
 import torch.nn.functional as F
 
 from ..sparse import ELL, TELL
+from ..sparse.ell import choose_lanes, pack
 from ..sparse.banded import TILE_ROWS, BandedSpMV
 from ..sparse.dell import DELL, PADCOL
 from ..sparse.dia import DIA
 from ..sparse.pattern import SparsityPattern
 from ..sparse.dtypes import torch_dtype
-from .mesh import _fit, make_mesh, padded_rows
+from .mesh import Rows, _fit, make_mesh, padded_rows, split_rows
 
 
-def _block(kind: str, M: sp.csr_matrix, dtype, device, col_base: int):
+def _block(kind: str, M: sp.csr_matrix, dtype, device, col_base: int,
+           lanes: int | None = None):
     """One shard's container: M's columns index the vector the shard
     reads; DIA and banded take their offsets and band about
-    ``col_base + i`` (the others gather at M's columns as they are)."""
+    ``col_base + i`` (the others gather at M's columns as they are, their
+    packed copy with ``lanes`` lanes a row where given)."""
     if M.nnz == 0:
         return None
     if kind == "dia":
@@ -55,12 +61,35 @@ def _block(kind: str, M: sp.csr_matrix, dtype, device, col_base: int):
     if kind == "banded":
         return BandedSpMV.from_scipy(M, dtype, col_base).to(device)
     if kind == "tell":
-        return TELL.from_scipy(M, dtype).to(device)
+        return _with_lanes(TELL.from_scipy(M, dtype).to(device), lanes)
     if kind == "ell":
-        return ELL.from_scipy(M, dtype).to(device)
+        return _with_lanes(ELL.from_scipy(M, dtype).to(device), lanes)
     if kind == "dell":
-        return _packed_dell(DELL.from_scipy(M, dtype, device))
+        return _packed_dell(DELL.from_scipy(M, dtype, device), lanes)
     raise ValueError(f"unknown container kind {kind!r}")
+
+
+def _with_lanes(M, lanes):
+    """A TELL or ELL whose packed copy (on a card) has ``lanes`` lanes a
+    row where given."""
+    if lanes is not None and M.packed is not None and M.packed.lanes != lanes:
+        M.packed = pack(M, lanes)
+    return M
+
+
+def _stack_lanes(kind: str, op, m: int):
+    """The lanes a row of the one stacked block of ``op``'s first m rows
+    (the gather kinds' block on a mesh of one device), which each
+    device's stacked block takes on a split mesh, so that every row sums
+    in the same order as on one card.  None on the CPU (nothing packs)."""
+    if not op.data.is_cuda:
+        return None
+    if kind == "dell":
+        live = op.cols[:m] < PADCOL
+        if op.nonzero_slots:
+            live &= op.data[:m] != 0
+        return choose_lanes(int(live.sum()), m)
+    return choose_lanes(int(op.pattern.indptr[m]), m)
 
 
 def _not_banded():
@@ -70,11 +99,11 @@ def _not_banded():
         "shards)")
 
 
-def _packed_dell(M: DELL) -> DELL:
+def _packed_dell(M: DELL, lanes: int | None = None) -> DELL:
     """A DELL with its packed copy made now where it lies on a card (the
     gather kernel reads it; a CUDA graph's capture cannot make it)."""
     if M.data.is_cuda:
-        M.pack()
+        M.pack(lanes)
     return M
 
 
@@ -85,9 +114,9 @@ GATHER_KINDS = ("tell", "ell", "dell")
 
 class _ShardedOp:
     """One container per active shard (None for a shard without
-    entries), or for the gather kinds one stacked container of every
-    active shard's rows; the rest of the ``S`` shards own padding
-    only."""
+    entries), or for the gather kinds one stacked container of the
+    active shards' rows of each device group (None for a group without
+    active shards); the rest of the ``S`` shards own padding only."""
 
     halo = False
 
@@ -101,6 +130,11 @@ class _ShardedOp:
         self.active = int(active)
         self.stacked = stacked
         self.label = label
+
+    def _spans(self):
+        """(group, first shard, active shards) of each device group."""
+        return [(g, grp.start, max(0, min(grp.stop, self.active) - grp.start))
+                for g, grp in enumerate(self.mesh.groups)]
 
     @property
     def n_pad(self) -> int:
@@ -141,26 +175,35 @@ class _ShardedOp:
         dtype = dtype or torch_dtype(A.data.dtype)
         n_src = cls._n_src(w, A.shape[1])
         stacked = kind in GATHER_KINDS
-        n_cols = active * n_src if stacked and cls.halo else n_src
-        parts = []
-        for s in range(active):
-            rows = sp.csr_matrix(A[min(s * w, n):min((s + 1) * w, n)])
-            indptr = np.concatenate([rows.indptr, np.full(
-                w - rows.shape[0], rows.indptr[-1])])
-            # a stacked block reads shard s's window at s * n_src of the
-            # windows laid end to end (a halo's; the all-gathered vector
-            # is one source for every shard)
-            offset = s * n_src if stacked and cls.halo else 0
-            parts.append(sp.csr_matrix(
-                (rows.data, rows.indices - cls._shift(s, w) + offset,
-                 indptr), shape=(w, n_cols)))
-        if stacked:
-            blocks = [_block(kind, sp.vstack(parts, format="csr"), dtype,
-                             mesh.device, 0)]
-        else:
-            blocks = [_block(kind, M, dtype, mesh.device,
-                             s * w - cls._shift(s, w))
-                      for s, M in enumerate(parts)]
+        # a split mesh's stacked blocks take the lanes of one whole stack
+        lanes = (choose_lanes(int(A.indptr[min(active * w, n)]), active * w)
+                 if stacked and mesh.split and torch.device(
+                     mesh.device).type == "cuda" else None)
+        blocks = []
+        for grp in mesh.groups:
+            shards = range(grp.start, min(grp.stop, active))
+            n_cols = len(shards) * n_src if stacked and cls.halo else n_src
+            parts = []
+            for s in shards:
+                rows = sp.csr_matrix(A[min(s * w, n):min((s + 1) * w, n)])
+                indptr = np.concatenate([rows.indptr, np.full(
+                    w - rows.shape[0], rows.indptr[-1])])
+                # a stacked block reads shard s's window at (s - first)
+                # n_src of its group's windows laid end to end (a halo's;
+                # the all-gathered vector is one source for every shard)
+                offset = (s - grp.start) * n_src if stacked and cls.halo \
+                    else 0
+                parts.append(sp.csr_matrix(
+                    (rows.data, rows.indices - cls._shift(s, w) + offset,
+                     indptr), shape=(w, n_cols)))
+            if stacked:
+                blocks.append(_block(kind, sp.vstack(parts, format="csr"),
+                                     dtype, grp.device, 0, lanes) if parts
+                              else None)
+            else:
+                blocks += [_block(kind, M, dtype, grp.device,
+                                  s * w - cls._shift(s, w))
+                           for s, M in zip(shards, parts)]
         return cls(blocks, mesh, w, n_src, dtype, active, stacked, label)
 
     @classmethod
@@ -183,12 +226,21 @@ class _ShardedOp:
         active = S if active is None else int(active)
         kind = _kind_of(op)
         n_src = cls._n_src(w, n_cols)
-        if kind == "dia":
-            blocks = cls._dia_blocks(op, w, active, n_src)
-        elif kind == "banded":
-            blocks = cls._banded_blocks(op, w, active, n_src)
+        if kind in GATHER_KINDS:
+            lanes = _stack_lanes(kind, op, active * w) if mesh.split \
+                else None
+            blocks = [cls._stacked_block(
+                kind, op, w, grp.start, min(grp.stop, active), n_src,
+                grp.device, lanes) if grp.start < active else None
+                for grp in mesh.groups]
         else:
-            blocks = [cls._stacked_block(kind, op, w, active, n_src)]
+            cut = cls._dia_blocks if kind == "dia" else cls._banded_blocks
+            blocks = cut(op, w, active, n_src)
+            if mesh.split:
+                # each shard's block onto its own device
+                blocks = [None if blk is None else
+                          blk.to(mesh.devices[s])
+                          for s, blk in enumerate(blocks)]
         return cls(blocks, mesh, w, n_src, op.dtype, active,
                    kind in GATHER_KINDS, label)
 
@@ -267,48 +319,62 @@ class _ShardedOp:
         return blocks
 
     @classmethod
-    def _stacked_block(cls, kind, op, w, active, n_src):
-        """The gather kinds' one container over the active shards' rows,
-        each column moved to its shard's source: ``- shift(s)``, and for a
-        halo ``+ s n_src`` (the windows laid end to end)."""
-        m = active * w
-        n_stack = active * n_src if cls.halo else n_src
+    def _stacked_block(cls, kind, op, w, first, stop, n_src, device,
+                       lanes=None):
+        """The gather kinds' one container over the rows of shards
+        ``[first, stop)`` (the active shards of a device group), each
+        column moved to its shard's source: ``- shift(s)``, and for a halo
+        ``+ (s - first) n_src`` (the windows laid end to end), built on
+        ``device``, packed with ``lanes`` lanes a row where given."""
+        r0, m = first * w, (stop - first) * w
+        n_stack = (stop - first) * n_src if cls.halo else n_src
         if kind == "dell":
-            cols = op.cols[:m].long()
+            cols = op.cols[r0:r0 + m].long()
             live = cols < PADCOL
-            s = torch.arange(m, device=cols.device)[:, None] // w
+            s = first + torch.arange(m, device=cols.device)[:, None] // w
             if cls.halo and bool((live & ((s - torch.div(
                     cols, w, rounding_mode="floor")).abs() > 1)).any()):
                 _not_banded()
-            move = -cls._shift(s, w) + (s * n_src if cls.halo else 0)
+            move = -cls._shift(s, w) + ((s - first) * n_src if cls.halo
+                                        else 0)
             return _packed_dell(DELL(
-                op.data[:m], torch.where(live, cols + move, PADCOL)
-                .to(torch.int32), n_stack, op.nonzero_slots))
+                op.data[r0:r0 + m].to(device),
+                torch.where(live, cols + move, PADCOL).to(torch.int32)
+                .to(device), n_stack, op.nonzero_slots), lanes)
         pat = op.pattern
-        row_len = np.diff(pat.indptr[:m + 1])
-        if cls.halo and pat.nnz:
+        indptr = pat.indptr[r0:r0 + m + 1]
+        indices = pat.indices[indptr[0]:indptr[-1]]
+        indptr = indptr - indptr[0]
+        row_len = np.diff(indptr)
+        if cls.halo and len(indices):
             # each row's least and greatest column bound its entries
             full = np.flatnonzero(row_len)
-            lo = np.minimum.reduceat(pat.indices, pat.indptr[full]) // w
-            hi = np.maximum.reduceat(pat.indices, pat.indptr[full]) // w
-            if np.any(lo < full // w - 1) or np.any(hi > full // w + 1):
+            lo = np.minimum.reduceat(indices, indptr[full]) // w
+            hi = np.maximum.reduceat(indices, indptr[full]) // w
+            own = (r0 + full) // w
+            if np.any(lo < own - 1) or np.any(hi > own + 1):
                 _not_banded()
-        s_row = np.arange(m, dtype=np.int64) // w
+        s_row = first + np.arange(m, dtype=np.int64) // w
         move = (np.zeros(m, dtype=np.int64) - cls._shift(s_row, w)
-                + (s_row * n_src if cls.halo else 0))
-        pattern = SparsityPattern(pat.indptr[:m + 1],
-                                  pat.indices + np.repeat(move, row_len),
+                + ((s_row - first) * n_src if cls.halo else 0))
+        pattern = SparsityPattern(indptr, indices + np.repeat(move, row_len),
                                   (m, n_stack))
-        # every slot moves with its row: a padding slot (value 0) then
-        # reads its row's source window, inside the stacked vector
+        # every slot moves with its row; a padding slot (value 0) is kept
+        # inside the stacked vector
         move = torch.as_tensor(move, device=op.data.device)
         if kind == "ell":
-            return ELL(pattern, op.data[:m],
-                       (op.cols[:m] + move[:, None]).to(torch.int32))
-        return TELL(pattern, op.data[:, :m].contiguous(),
-                    (op.cols[:, :m] + move[None, :]).to(torch.int32))
+            return _with_lanes(ELL(
+                pattern, op.data[r0:r0 + m].to(device),
+                (op.cols[r0:r0 + m] + move[:, None]).clamp(0, n_stack - 1)
+                .to(torch.int32).to(device)), lanes)
+        return _with_lanes(TELL(
+            pattern, op.data[:, r0:r0 + m].contiguous().to(device),
+            (op.cols[:, r0:r0 + m] + move[None, :]).clamp(0, n_stack - 1)
+            .to(torch.int32).to(device)), lanes)
 
     def matvec(self, x):
+        if isinstance(x, Rows):
+            return self._matvec_split(x)
         src = self._sources(x)
         if self.stacked:
             blk = self.blocks[0]
@@ -322,20 +388,47 @@ class _ShardedOp:
             ys.append(x.new_zeros(pad))
         return torch.cat(ys)
 
+    def _matvec_split(self, x: Rows) -> Rows:
+        """The product on a split mesh: each device's shards read their
+        sources there (``_sources_split``) and write its rows of y."""
+        if x.n != self.n_pad:
+            raise ValueError(f"a Rows of {x.n} entries for an operator on "
+                             f"{self.n_pad} rows")
+        parts = []
+        for (g, first, k), src in zip(self._spans(),
+                                      self._sources_split(x)):
+            grp = self.mesh.groups[g]
+            zero = x.parts[g].new_zeros
+            if self.stacked:
+                blk = self.blocks[g]
+                ys = [zero(k * self.w) if blk is None else
+                      blk.matvec(src.reshape(-1) if self.halo else src)]
+            else:
+                ys = [zero(self.w) if blk is None else blk.matvec(
+                    src[i] if self.halo else src)
+                    for i, blk in enumerate(self.blocks[first:first + k])]
+            pad = (grp.stop - grp.start - k) * self.w
+            if pad:
+                ys.append(zero(pad))
+            parts.append(torch.cat(ys))
+        return Rows(self.mesh, parts, self.n_pad)
+
     def __matmul__(self, x):
         return self.matvec(x)
 
     def to_scipy(self) -> sp.csr_matrix:
         """The operator on the padded row space, from its blocks."""
         rows, cols, vals = [], [], []
-        for s, blk in enumerate(self.blocks):
+        for i, blk in enumerate(self.blocks):
             if blk is None:
                 continue
             coo = blk.to_scipy().tocoo()
-            shard = coo.row // self.w if self.stacked else s
-            local = coo.col - (shard * self.n_src
+            # a stacked block starts at its group's first shard
+            first = self.mesh.groups[i].start if self.stacked else i
+            shard = first + coo.row // self.w if self.stacked else i
+            local = coo.col - ((shard - first) * self.n_src
                                if self.stacked and self.halo else 0)
-            rows.append(coo.row + (0 if self.stacked else s * self.w))
+            rows.append(coo.row + first * self.w)
             cols.append(local + self._shift(shard, self.w))
             vals.append(coo.data)
         n_cols = self.n_pad if self.halo else self.n_src
@@ -376,6 +469,13 @@ class HaloELL(_ShardedOp):
         blocks = _fit(x, self.n_pad).view(S, w)[:self.active]
         return self.mesh.halo(blocks, self.label)
 
+    def _sources_split(self, x: Rows):
+        """Each group's windows, neighbour blocks across the group borders
+        copied from the neighbouring devices (``Mesh.halo_split``)."""
+        return self.mesh.halo_split(
+            [p.view(-1, self.w)[:k] for p, (_, _, k) in
+             zip(x.parts, self._spans())], self.label)
+
 
 class RowShardedOp(_ShardedOp):
     """A row-sharded operator on any partition: each shard reads the
@@ -397,6 +497,13 @@ class RowShardedOp(_ShardedOp):
         full = self.mesh.all_gather(_fit(x, self.n_src), self.label)
         return [full] * self.active
 
+    def _sources_split(self, x: Rows):
+        """The whole vector on every group's device."""
+        if self.n_src != x.n:
+            raise NotImplementedError("a rectangular RowShardedOp on a "
+                                      "split mesh")
+        return self.mesh.all_gather(x.parts, self.label)
+
 
 class HaloSpMV:
     """Banded-partition SpMV with explicit neighbour exchange, built from a
@@ -412,10 +519,14 @@ class HaloSpMV:
         self.w = self.op.w
 
     def matvec(self, x):
+        """x and the result as tensors on the mesh's controller device."""
         x = torch.as_tensor(np.asarray(x) if not isinstance(
             x, torch.Tensor) else x, dtype=self.op.dtype,
             device=self.mesh.device)
-        return self.op.matvec(_fit(x, self.op.n_pad))[: self.n]
+        x = _fit(x, self.op.n_pad)
+        if self.mesh.split:
+            x = split_rows(x, self.mesh, "HaloSpMV")
+        return self.op.matvec(x)[: self.n]
 
     def __matmul__(self, x):
         return self.matvec(x)

@@ -19,7 +19,11 @@ each way and the column mask and renumbering two.
 
 Each shard runs the serial product or extraction on its rows, so the
 values equal the serial path's.  When a band check fails these return
-None and the caller takes the serial path over all of B (or A).
+None and the caller takes the serial path over all of B (or A).  On a
+split mesh (parallel/mesh.py) each shard runs on its own device: the
+operands' row blocks are placed there from the controller device, the
+neighbour blocks come over from the neighbouring devices, and each
+shard's result rows go back to the controller device to be stacked.
 """
 
 from __future__ import annotations
@@ -70,18 +74,33 @@ def spgemm_drop_halo(A: DELL, B: DELL, tol: float, relative: bool,
         diag_of_row = torch.arange(n_a, dtype=A.cols.dtype, device=A.device)
     Kb = B.K
     label = getattr(A, "label", "")
-    bd = mesh.halo(B.data.view(S, w_b, Kb), label)
-    bc = mesh.halo(B.cols.view(S, w_b, Kb), label)
+    bd = mesh.halo(mesh.scatter(B.data.view(S, w_b, Kb), label), label)
+    bc = mesh.halo(mesh.scatter(B.cols.view(S, w_b, Kb), label), label)
     parts = []
     for s in range(S):
         rows = slice(s * w_a, (s + 1) * w_a)
-        ac = A.cols[rows]
+        g, i, own = _shard(mesh, s, label)
+        ac = own(A.cols[rows])
         # A's columns in the shard's window of B rows [(s-1) w_b, (s+2) w_b)
         local = torch.where(ac < PADCOL, ac - (s - 1) * w_b, PADCOL)
-        bc1, bd1 = _sentinel_rows(DELL(bd[s], bc[s], B.n_cols))
-        parts += spgemm_drop_parts(A.data[rows], local, bc1, bd1, 3 * w_b,
-                                   tol, relative, lump, diag_of_row[rows])
+        bc1, bd1 = _sentinel_rows(DELL(bd[g][i], bc[g][i], B.n_cols))
+        parts += [_back(mesh, g, part, label) for part in spgemm_drop_parts(
+            own(A.data[rows]), local, bc1, bd1, 3 * w_b, tol, relative,
+            lump, own(diag_of_row[rows]))]
     return parts
+
+
+def _shard(mesh, s: int, label: str):
+    """Shard s's group, its index there, and a function that places a
+    controller tensor on its device."""
+    g = mesh.group_of(s)
+    return (g, s - mesh.groups[g].start,
+            lambda t: mesh._to_group(t, 0, g, label))
+
+
+def _back(mesh, g: int, tensors, label: str):
+    """A shard's result tensors on the controller device."""
+    return tuple(mesh._to_group(t, g, 0, label) for t in tensors)
 
 
 def extract_halo(A: DELL, row_idx, col_mask, col_newidx, ensure_diag: bool,
@@ -107,26 +126,30 @@ def extract_halo(A: DELL, row_idx, col_mask, col_newidx, ensure_diag: bool,
         return None
     K = A.K
     label = getattr(A, "label", "")
-    ad = mesh.halo(A.data.view(S, w_in, K), label)
-    ac = mesh.halo(A.cols.view(S, w_in, K), label)
-    cm = mesh.halo(col_mask.to(torch.int32).view(S, w_in), label, depth=2)
-    cn = mesh.halo(col_newidx.to(torch.int32).view(S, w_in), label,
-                   depth=2)
+
+    def halo(t, depth=1):
+        return mesh.halo(mesh.scatter(t, label), label, depth=depth)
+
+    ad = halo(A.data.view(S, w_in, K))
+    ac = halo(A.cols.view(S, w_in, K))
+    cm = halo(col_mask.to(torch.int32).view(S, w_in), depth=2)
+    cn = halo(col_newidx.to(torch.int32).view(S, w_in), depth=2)
     outs_c, outs_v = [], []
     for s in range(S):
-        r = ridx[s * w_out:(s + 1) * w_out]
+        g, i, own = _shard(mesh, s, label)
+        r = own(ridx[s * w_out:(s + 1) * w_out])
         live_r = r < PADCOL
         # source rows in the window [(s-1) w_in, (s+2) w_in); dead rows
         # read the sentinel row appended past it
         loc = torch.where(live_r, r - (s - 1) * w_in, 3 * w_in)
-        cols = torch.cat([ac[s], ac.new_full((1, K), PADCOL)])[loc]
-        vals = torch.cat([ad[s], ad.new_zeros((1, K))])[loc]
+        cols = torch.cat([ac[g][i], ac[g].new_full((1, K), PADCOL)])[loc]
+        vals = torch.cat([ad[g][i], ad[g].new_zeros((1, K))])[loc]
         live = cols < PADCOL
         # columns in the window [(s-2) w_in, (s+3) w_in)
         cloc = torch.where(live, cols.to(torch.int64) - (s - 2) * w_in,
                            5 * w_in)
-        cms = torch.cat([cm[s], cm.new_zeros(1)])
-        cns = torch.cat([cn[s], cn.new_zeros(1)])
+        cms = torch.cat([cm[g][i], cm[g].new_zeros(1)])
+        cns = torch.cat([cn[g][i], cn[g].new_zeros(1)])
         keep = live & (cms[cloc] != 0)
         ncols = torch.where(keep, cns[cloc].to(cols.dtype), PADCOL)
         nvals = torch.where(keep, vals, 0.0)
@@ -137,6 +160,7 @@ def extract_halo(A: DELL, row_idx, col_mask, col_newidx, ensure_diag: bool,
             extra = torch.where(has | ~live_r, PADCOL, grow)[:, None]
             ncols = torch.cat([ncols, extra], dim=1)
             nvals = torch.cat([nvals, nvals.new_zeros((w_out, 1))], dim=1)
+        ncols, nvals = _back(mesh, g, (ncols, nvals), label)
         outs_c.append(ncols)
         outs_v.append(nvals)
     return torch.cat(outs_c)[:n_new], torch.cat(outs_v)[:n_new]

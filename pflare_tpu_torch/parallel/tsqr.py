@@ -33,15 +33,21 @@ def tsqr_r(K, mesh, label: str = "tsqr"):
     if n % S:
         raise ValueError("rows not divisible by mesh size")
     blocks = K.view(S, n // S, m)
-    rs = [_r(b)[:m] for b in blocks]       # min(n / S, m) rows each
+    group = [mesh.group_of(s) for s in range(S)]
+    parts = mesh.scatter(blocks, label)
+    rs = [_r(parts[group[s]][s - mesh.groups[group[s]].start])[:m]
+          for s in range(S)]               # min(n / S, m) rows each
     if S & (S - 1):
-        gathered = torch.stack(rs)
-        mesh.all_gather(gathered, label)
-        return _r(gathered.reshape(-1, m))
+        nbytes = sum(r.numel() for r in rs) * rs[0].element_size()
+        mesh.record(label, "all_gather", nbytes * (S - 1))
+        return _r(torch.cat([mesh._to_group(r, group[s], 0, label)
+                             for s, r in enumerate(rs)]))
     d = 1
     while d < S:
-        stacked = torch.stack(rs)
-        other = mesh.ppermute(stacked, [(i ^ d, i) for i in range(S)], label)
+        mesh.record(label, "ppermute", S * rs[0].numel()
+                    * rs[0].element_size())
+        other = [mesh._to_group(rs[i ^ d], group[i ^ d], group[i], label)
+                 for i in range(S)]
         rs = [_r(torch.cat([rs[i], other[i]] if i & d == 0
                            else [other[i], rs[i]]))[:m] for i in range(S)]
         d *= 2

@@ -18,6 +18,7 @@ the same product as a PyTorch gather from ``x_pad``.
 
 from __future__ import annotations
 
+import collections
 import sys
 
 import numpy as np
@@ -33,6 +34,8 @@ TILE_ROWS = 128
 # kept so both packages choose the same container for every operator.
 _ENVELOPE_BYTES = 12 * 1024 * 1024
 KERNEL_LAUNCHES = 0  # launches of csrc/banded_spmv.cu since the last reset
+# the same launches by card index (a mesh's shards launch on their own)
+LAUNCHES_BY_DEVICE = collections.Counter()
 graphs.count_launches(sys.modules[__name__], "banded_spmv_kernel")
 
 
@@ -79,10 +82,11 @@ def banded_spmv_cuda(data, lcols, x, n: int, n_cols: int, w: int, W: int,
         raise ValueError("banded_spmv_cuda: data and lcols must be 16-byte "
                          "aligned (the kernel reads four rows at a time)")
     y = torch.empty(n, dtype=data.dtype, device=data.device)
-    cuda.launch("banded_spmv", data.dtype, data.data_ptr(), lcols.data_ptr(),
-                x.data_ptr(), y.data_ptr(), n, n_pad, n_cols, K, w, W,
-                col_base, cuda.stream_handle(data.device))
+    cuda.launch("banded_spmv", data.dtype, data.device, data.data_ptr(),
+                lcols.data_ptr(), x.data_ptr(), y.data_ptr(), n, n_pad,
+                n_cols, K, w, W, col_base)
     KERNEL_LAUNCHES += 1
+    LAUNCHES_BY_DEVICE[data.device.index] += 1
     return y
 
 

@@ -40,6 +40,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import cuda
 from .dtypes import numpy_dtype
 from .ell import SORT_WINDOW, pack, sell_indices, sell_spmv_cuda
 
@@ -107,9 +108,10 @@ class DELL:
             pack_dells([self])
         return self._packed
 
-    def pack(self):
-        """Make the packed copy (on the DELL's device) and return it."""
-        pack_dells([self])
+    def pack(self, lanes: int | None = None):
+        """Make the packed copy (on the DELL's device) with ``lanes``
+        lanes a row (default: chosen from its nonzeros) and return it."""
+        pack_dells([self], lanes)
         return self._packed
 
     def matvec(self, x):
@@ -176,9 +178,11 @@ def dell_spmv_plain(M: DELL, x):
     return (M.data * g).sum(dim=1)
 
 
-def pack_dells(dells):
+def pack_dells(dells, lanes: int | None = None):
     """Give each DELL of ``dells`` without one its packed copy, on its own
-    device.  The ``cols`` tensors not yet indexed get their packing
+    device, with ``lanes`` lanes a row where given (a sharded operator's
+    device blocks take the whole operator's, so that each row sums in the
+    same order).  The ``cols`` tensors not yet indexed get their packing
     indexes (``sparse/ell.py::sell_indices``: row lengths
     ``(cols < PADCOL).sum(1)``, width K, row stride K, slot stride 1,
     ``choose_lanes`` of the nonzeros) with one host read a device, which
@@ -193,11 +197,13 @@ def pack_dells(dells):
     todo = {id(M): M for M in dells if M._packed is None}
     if not todo:
         return
-    if (torch.cuda.is_available()
-            and any(M.data.is_cuda for M in todo.values())
-            and torch.cuda.is_current_stream_capturing()):
-        raise RuntimeError("a DELL cannot be packed inside a CUDA-graph "
-                           "capture: pack it first (DELL.pack, pack_dells)")
+    for dev in {M.data.device for M in todo.values() if M.data.is_cuda}:
+        with cuda.guard(dev):     # the capture state of that card's stream
+            capturing = torch.cuda.is_current_stream_capturing()
+        if capturing:
+            raise RuntimeError("a DELL cannot be packed inside a CUDA-graph "
+                               "capture: pack it first (DELL.pack, "
+                               "pack_dells)")
     # what needs an index, by device: a nonzero_slots DELL, or a cols
     # tensor not indexed yet
     by_device = {}
@@ -207,7 +213,7 @@ def pack_dells(dells):
         elif getattr(M.cols, "_sell_index", None) is None:
             by_device.setdefault(M.cols.device, {})[id(M.cols)] = M.cols
     own = {}
-    for items in by_device.values():
+    for dev, items in by_device.items():
         specs, order_bad = [], []
         for item in items.values():
             if isinstance(item, DELL):
@@ -216,16 +222,17 @@ def pack_dells(dells):
                 K = keep.shape[1]
                 slot_of = torch.sort((~keep).to(torch.int8), dim=1,
                                      stable=True).indices
-                specs.append((keep.sum(dim=1), K, None, K, 1, SORT_WINDOW,
+                specs.append((keep.sum(dim=1), K, lanes, K, 1, SORT_WINDOW,
                               slot_of))
                 continue
             live = item < PADCOL
             K = item.shape[1]
-            specs.append((live.sum(dim=1), K, None, K, 1, SORT_WINDOW,
+            specs.append((live.sum(dim=1), K, lanes, K, 1, SORT_WINDOW,
                           None))
             order_bad.append((live[:, 1:] & ~live[:, :-1]).any())
-        indexes, bad = sell_indices(
-            specs, torch.stack(order_bad) if order_bad else None)
+        with cuda.guard(dev):     # built, and read back, on that card
+            indexes, bad = sell_indices(
+                specs, torch.stack(order_bad) if order_bad else None)
         if any(bad):
             raise ValueError(
                 f"pack_dells: {sum(bad)} of {len(bad)} DELL patterns have "

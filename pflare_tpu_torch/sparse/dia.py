@@ -17,6 +17,7 @@ reference's XLA loop (pflare_tpu/sparse/dia.py:197-205) in PyTorch.
 
 from __future__ import annotations
 
+import collections
 import sys
 
 import numpy as np
@@ -30,6 +31,8 @@ from .dtypes import numpy_dtype, torch_dtype
 
 MAX_OFFSETS = 16     # the kernel takes its offsets by value
 KERNEL_LAUNCHES = 0  # launches of csrc/dia_spmv.cu since the last reset
+# the same launches by card index (a mesh's shards launch on their own)
+LAUNCHES_BY_DEVICE = collections.Counter()
 graphs.count_launches(sys.modules[__name__], "dia_spmv_kernel")
 # csrc/dia_spmv.cu's grouping (kThreads, Chunk<T>::rows): a block of
 # BLOCK_THREADS threads, each owning ROWS_PER_THREAD consecutive rows
@@ -81,10 +84,11 @@ def dia_spmv_cuda(data, offsets, x, n_rows: int, n_cols: int,
                          f"1..{MAX_OFFSETS}")
     y = torch.empty(n_rows, dtype=data.dtype, device=data.device)
     offs = np.ascontiguousarray(offsets, dtype=np.int64) + col_base
-    cuda.launch("dia_spmv", data.dtype, data.data_ptr(), x.data_ptr(),
-                y.data_ptr(), n_rows, n_cols, offs.ctypes.data, K,
-                cuda.stream_handle(data.device))
+    cuda.launch("dia_spmv", data.dtype, data.device, data.data_ptr(),
+                x.data_ptr(), y.data_ptr(), n_rows, n_cols,
+                offs.ctypes.data, K)
     KERNEL_LAUNCHES += 1
+    LAUNCHES_BY_DEVICE[data.device.index] += 1
     return y
 
 

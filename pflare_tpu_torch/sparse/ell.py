@@ -30,6 +30,7 @@ bit for bit.
 
 from __future__ import annotations
 
+import collections
 import sys
 
 import numpy as np
@@ -44,6 +45,8 @@ from .dtypes import numpy_dtype
 from .spgemm import segment_sum
 
 KERNEL_LAUNCHES = 0  # launches of csrc/sell_spmv.cu since the last reset
+# the same launches by card index (a mesh's shards launch on their own)
+LAUNCHES_BY_DEVICE = collections.Counter()
 graphs.count_launches(sys.modules[__name__], "sell_spmv_kernel")
 WARP = 32            # threads of a warp: one slice a warp
 BLOCK_THREADS = 256  # csrc/sell_spmv.cu's kThreads: eight slices a block
@@ -260,9 +263,10 @@ def sell_index(M, lanes: int | None = None, device=None,
             raise ValueError(f"{type(M).__name__} storage "
                              f"{tuple(M.data.shape)} does not hold its "
                              f"pattern ({pat.shape[0]} rows, K={pat.K})")
-        (index,), _ = sell_indices([(torch.as_tensor(row_len, device=device),
-                                     k_store, lanes, *strides, window,
-                                     None)])
+        with cuda.guard(device):  # built, and read back, on that card
+            (index,), _ = sell_indices([(
+                torch.as_tensor(row_len, device=device), k_store, lanes,
+                *strides, window, None)])
         pat._packs[key] = index
     return index
 
@@ -363,11 +367,12 @@ def sell_spmv_cuda(packed: Sell, x):
     n_slices = packed.index.n_slices
     if n_slices == 0:
         return y
-    cuda.launch("sell_spmv", data.dtype, data.data_ptr(), cols.data_ptr(),
-                packed.slice_ptr.data_ptr(), packed.row_of.data_ptr(),
-                x.data_ptr(), y.data_ptr(), n_slices, packed.lanes,
-                cuda.stream_handle(data.device))
+    cuda.launch("sell_spmv", data.dtype, data.device, data.data_ptr(),
+                cols.data_ptr(), packed.slice_ptr.data_ptr(),
+                packed.row_of.data_ptr(), x.data_ptr(), y.data_ptr(),
+                n_slices, packed.lanes)
     KERNEL_LAUNCHES += 1
+    LAUNCHES_BY_DEVICE[data.device.index] += 1
     return y
 
 

@@ -508,6 +508,48 @@ def test_sharded_kernels_match_plain_on_card(dtype, tol):
         assert not got[A.shape[0]:].any()
 
 
+def test_mesh_over_two_cards_matches_one_card():
+    """A 4-shard 256^2 f32 solve over two cards (two shards a card)
+    against the same 4 shards on one card: norms within 1e-5 of each,
+    x back on the first card, each DIA and banded shard block on its
+    own card and launched there, the bytes that crossed the cards
+    counted; jit=True over two cards raises NotImplementedError."""
+    from pflare_tpu_torch.parallel import make_mesh
+
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    A = tpf.adv_diff_2d(256)
+    opts = tpf.AIROptions(a_lump=True, a_drop=1e-5, strong_threshold=0.99)
+    pc = tpf.PCAIR(opts, dtype=torch.float32, device=cards[0], jit=False)
+    pc.setup(A.astype(np.float32))
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    one = make_mesh(devices=[cards[0]] * 4)
+    two = make_mesh(devices=[cards[0], cards[0], cards[1], cards[1]])
+    _, n1 = pc.solve_device(b, max_it=10, mesh=one)
+    for mod in (tdia, tbanded):
+        mod.LAUNCHES_BY_DEVICE.clear()
+    x2, n2 = pc.solve_device(b, max_it=10, mesh=two)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(n2.cpu().numpy(), n1.cpu().numpy(),
+                               rtol=1e-5)
+    assert x2.device == cards[0]
+    st = pc._distributed_state(two)
+    on_card1 = 0
+    for op in [st.top] + [v for lev in st.levels for v in lev.values()]:
+        for s, blk in enumerate(getattr(op, "blocks", [])):
+            if isinstance(blk, (DIA, BandedSpMV)):
+                assert blk.data.device == two.devices[s]
+                on_card1 += two.devices[s] == cards[1]
+    assert on_card1 and (tdia.LAUNCHES_BY_DEVICE[1]
+                         + tbanded.LAUNCHES_BY_DEVICE[1]) > 0
+    assert two.traffic()["peer"][1] > 0
+    with pytest.raises(NotImplementedError):
+        tpf.PCAIR(opts, dtype=torch.float32, device=cards[0]).setup(
+            A.astype(np.float32)).solve_device(b, mesh=two)
+
+
 def test_segment_sum_card_equals_cpu():
     """``segment_sum`` on the card equals the CPU's ``index_add_`` into
     zeros bit for bit, on values of many magnitudes in runs of up to

@@ -37,13 +37,16 @@ def _kinds(mesh):
 
 
 def test_make_mesh_places_shards():
-    """n shards on the asked device; without a card "cuda" raises."""
+    """n shards on the asked device; a mesh over two devices has two
+    device groups, its controller the first shard's device; without a
+    card "cuda" raises."""
     mesh = _mesh(8)
     assert mesh.size == 8 and mesh.device == torch.device("cpu")
-    assert tpar.make_mesh(device="cpu").size == 1
+    assert tpar.make_mesh(device="cpu").size == 1 and not mesh.split
     split = tpar.make_mesh(devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError):
-        split.device
+    assert split.split and split.device == torch.device("cpu")
+    assert [g.device for g in split.groups] == [torch.device("cpu"),
+                                                torch.device("meta")]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tpar.make_mesh(4)

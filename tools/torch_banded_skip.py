@@ -30,10 +30,10 @@ SKIP_TEST = "d[v] != T(0) && "
 def matvec(torch, cuda, lib, M, x):
     K, n_pad = M.data.shape
     y = torch.empty(M.n, dtype=M.data.dtype, device=M.data.device)
-    cuda.launch("banded_spmv", M.data.dtype, M.data.data_ptr(),
-                M.lcols.data_ptr(), x.data_ptr(), y.data_ptr(), M.n, n_pad,
-                M.n_cols, K, M.w, M.W, M.col_base,
-                cuda.stream_handle(M.data.device), lib=lib)
+    cuda.launch("banded_spmv", M.data.dtype, M.data.device,
+                M.data.data_ptr(), M.lcols.data_ptr(), x.data_ptr(),
+                y.data_ptr(), M.n, n_pad, M.n_cols, K, M.w, M.W, M.col_base,
+                lib=lib)
     return y
 
 

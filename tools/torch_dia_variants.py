@@ -87,9 +87,9 @@ def matvec(torch, np, cuda, lib, D, x):
     n_rows, n_cols = D.shape
     y = torch.empty(n_rows, dtype=D.data.dtype, device=D.data.device)
     offs = np.ascontiguousarray(D.offsets, dtype=np.int64)
-    cuda.launch("dia_spmv", D.data.dtype, D.data.data_ptr(), x.data_ptr(),
-                y.data_ptr(), n_rows, n_cols, offs.ctypes.data,
-                len(D.offsets), cuda.stream_handle(D.data.device), lib=lib)
+    cuda.launch("dia_spmv", D.data.dtype, D.data.device, D.data.data_ptr(),
+                x.data_ptr(), y.data_ptr(), n_rows, n_cols, offs.ctypes.data,
+                len(D.offsets), lib=lib)
     return y
 
 
