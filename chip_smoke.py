@@ -199,9 +199,12 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     raises there), norms within 1e-5 of serial, each shard's DIA and
     banded blocks on its own card and launched there as often as their
     operator's products, the bytes across cards an iteration by level,
-    wall and busy time by card; and (a)'s 8-shard 512^2 f64 setup over
+    wall and busy time by card; (a)'s 8-shard 512^2 f64 setup over
     the cards against the one-card mesh: markers equal on every level,
-    R within 1e-11, equal right GMRES iterations;
+    R within 1e-11, equal right GMRES iterations; and ``shard_ell`` of
+    the 2048^2 top A and of its first n/2 columns as f32 ELLs on 4
+    shards over the cards against the one-card mesh, given a plain and
+    a sharded x: y bit for bit, each card's gather launches;
 16. the example and notebook twins (examples/torch/, notebooks/torch/),
     each loaded in this process and run on the card with the launch
     counters at 0 before it (``PHASE16_EXAMPLES``, ``PHASE16_NOTEBOOKS``):
@@ -975,7 +978,8 @@ def main() -> int:
     print(f"# phase 15: {t_phase15:.3f} s")
     cards = [torch.device("cuda", i)
              for i in range(torch.cuda.device_count())]
-    phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512, pc2k, b2k)
+    phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512, pc2k, A2k,
+             b2k)
 
     # ~~~~~~~~~~ 16. the example and notebook twins ~~~~~~~~~~
     twin_runs, t_phase16 = phase16(np, torch, tpf, tdia, tbanded, dev,
@@ -3235,6 +3239,104 @@ def phase15(np, torch, tpf, tdia, tbanded, dev, A512, pc2k, A2k, b2k, fv,
     return out, time.perf_counter() - t_phase, mesh_b
 
 
+def phase15d_shard_ell(np, torch, dev, use, A2k, repeats=5):
+    """Phase 15 (d) (3): ``shard_ell`` of (1)'s 2048^2 top A as an f32
+    ``ELL``, and of the ELL of its first n/2 columns (``A[:, :n // 2]``,
+    from scipy), on 4 shards over the cards ``use`` against the same 4
+    shards on ``dev``, each given a plain x (one tensor of the padded
+    rows comes back on the controller) and a ``shard_vec`` x (over the
+    cards a ``Rows`` comes back): y equal bit for bit on both meshes and for both forms
+    of x, the padded rows zero, within 1e-5 of scipy's f64 product of
+    the same f32 values (relative to its largest entry); the gather
+    kernel launched once a product on each card that holds a stacked
+    block (``LAUNCHES_BY_DEVICE``).  Returns, for each mesh and form of
+    x, the launches by card, the bytes across cards of a product
+    (``Mesh.log``'s ``peer``) and the median wall of ``repeats`` products
+    to completion."""
+    import scipy.sparse as sp
+
+    from pflare_tpu_torch.parallel import make_mesh, shard_ell, shard_vec
+    from pflare_tpu_torch.parallel.mesh import Rows, gather
+    from pflare_tpu_torch.sparse import ELL
+    from pflare_tpu_torch.sparse import ell as sell
+    from pflare_tpu_torch.utils.timers import device_sync_read
+
+    def sync():
+        if dev.type == "cuda":
+            for c in use:
+                torch.cuda.synchronize(c)
+
+    n = A2k.shape[0]
+    meshes = {"one card": make_mesh(4, device=dev),
+              "cards": make_mesh(devices=[use[s * len(use) // 4]
+                                          for s in range(4)])}
+    rng = np.random.default_rng(5)
+    out = {}
+    for name, A in (("square", A2k), ("rectangular", A2k[:, :n // 2])):
+        A = sp.csr_matrix(A, dtype=np.float32)
+        x = torch.as_tensor(rng.standard_normal(A.shape[1]),
+                            dtype=torch.float32, device=dev)
+        ref = A.astype(np.float64) @ x.cpu().double().numpy()
+        E = ELL.from_scipy(A, torch.float32).to(dev)
+        ys, runs = [], {}
+        for tag, mesh in meshes.items():
+            op = shard_ell(E, mesh)
+            want = {}
+            for blk in op.blocks:
+                if blk is not None:
+                    idx = blk.data.device.index
+                    want[idx] = want.get(idx, 0) + 1
+            for form in ("plain", "sharded"):
+                xin = x if form == "plain" else shard_vec(x, mesh)
+                sync()
+                sell.KERNEL_LAUNCHES = 0
+                sell.LAUNCHES_BY_DEVICE.clear()
+                mesh.reset_log()
+                y = op.matvec(xin)
+                launches = dict(sell.LAUNCHES_BY_DEVICE)
+                peer = mesh.traffic().get("peer", (0, 0))
+                require(isinstance(y, Rows) == (form == "sharded"
+                                                and mesh.split),
+                        f"phase 15 (d) (3): {name} {tag} {form} x gave a "
+                        f"{type(y).__name__}")
+                require(launches == want,
+                        f"phase 15 (d) (3): {name} {tag} {form} x: gather "
+                        f"launches by card {launches}, blocks by card "
+                        f"{want}")
+                ys.append(gather(y))
+                sync()
+                walls = []
+                for _ in range(repeats):
+                    t0 = time.perf_counter()
+                    device_sync_read(gather(op.matvec(xin)))
+                    sync()
+                    walls.append(time.perf_counter() - t0)
+                runs[f"{tag} {form}"] = {
+                    "launches_by_card": launches, "peer": list(peer),
+                    "wall_ms": 1e3 * float(np.median(walls))}
+        m = A.shape[0]
+        y0 = ys[0]
+        same = all(torch.equal(y, y0) for y in ys[1:])
+        got = y0.cpu().double().numpy()
+        rel = float(np.abs(got[:m] - ref).max() / np.abs(ref).max())
+        require(same and y0.shape[0] == 4 * -(-m // 4)
+                and not got[m:].any() and rel <= 1e-5,
+                f"phase 15 (d) (3): {name} {A.shape}: bit for bit across "
+                f"meshes and forms of x {same}, {y0.shape[0]} rows, within "
+                f"{rel:.3e} of scipy")
+        print(f"# phase 15 (d) (3) shard_ell of the 2048^2 {name} f32 ELL "
+              f"{A.shape} on 4 shards over {len(use)} cards: y bit for bit "
+              f"the one-card mesh's with a plain and a sharded x: {same}; "
+              f"within {rel:.3e} of scipy f64; "
+              + "; ".join(f"{k}: launches {v['launches_by_card']}, peer "
+                          f"{v['peer'][0]} copies {v['peer'][1]} B, wall "
+                          f"{v['wall_ms']:.4f} ms" for k, v in runs.items()),
+              flush=True)
+        out[name] = {"shape": list(A.shape), "equal": same, "rel_err": rel,
+                     "runs": runs}
+    return out
+
+
 def card_busy(torch, fn, label):
     """``fn()`` once under torch.profiler (device activity), to
     completion: its wall seconds and {card index: busy ms} from the
@@ -3259,7 +3361,8 @@ def card_busy(torch, fn, label):
     return wall, busy
 
 
-def phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512, pc2k, b2k):
+def phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512, pc2k, A2k,
+             b2k):
     """Phase 15 (d): the row mesh over several cards (``cards``, the
     visible ones; with fewer than two it prints that it did not run and
     returns None).  (1) phase 7's 2048^2 f32 hierarchy on 4 shards over
@@ -3274,8 +3377,9 @@ def phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512, pc2k, b2k):
     and busy time by card under torch.profiler; (2) phase 15 (a)'s
     8-shard 512^2 f64 distributed setup over the cards against the same
     8 shards on ``dev``: markers equal on every level, R within 1e-11 of
-    its largest entry, equal right GMRES iterations.  Returns its
-    numbers."""
+    its largest entry, equal right GMRES iterations; (3) ``shard_ell`` of
+    (1)'s top A (``A2k``) and of its first n/2 columns over the cards
+    (``phase15d_shard_ell``).  Returns its numbers."""
     from pflare_tpu_torch.parallel import HaloELL, make_mesh
     from pflare_tpu_torch.parallel.mesh import tensor_device
     from pflare_tpu_torch.sparse import DIA, BandedSpMV
@@ -3457,6 +3561,9 @@ def phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512, pc2k, b2k):
     out["setup"] = {"levels": len(hm), "r_rel": r_rel,
                     "iterations": rm.iterations, "setup_s": tm,
                     "one_card_setup_s": t1, "traffic": setup_peer}
+
+    # (3) shard_ell over the cards, square and rectangular
+    out["shard_ell"] = phase15d_shard_ell(np, torch, dev, use, A2k)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"# phase 15 (d): {out['seconds']:.3f} s", flush=True)
     return out

@@ -24,9 +24,12 @@ their windows laid end to end: one product for each device of the mesh
 where it is built, so a captured sharded solve packs nothing.
 Every block lies on its shard's device (cut on the controller device,
 then moved there), so on a split mesh each card launches its own shards'
-products on the ``Rows`` of its own rows (parallel/mesh.py).
+products on the ``Rows`` of its own rows (parallel/mesh.py).  A product
+takes a ``Rows`` or a plain tensor on the controller device on any mesh
+(``_ShardedOp.matvec``).
 ``RowShardedOp`` is the fallback when the band check fails: each shard
-reads the all-gathered vector, at column base ``s * w``.  ``from_scipy``
+reads the all-gathered vector, at column base ``s * w``; it takes any
+shape (``shard_ell`` of a rectangular operator).  ``from_scipy``
 cuts the blocks from a host matrix; ``from_op`` cuts the same blocks
 from a device operator's own tensors, as a solve shards its hierarchy.
 """
@@ -45,7 +48,7 @@ from ..sparse.dell import DELL, PADCOL
 from ..sparse.dia import DIA
 from ..sparse.pattern import SparsityPattern
 from ..sparse.dtypes import torch_dtype
-from .mesh import Rows, _fit, make_mesh, padded_rows, split_rows
+from .mesh import Rows, _fit, gather, make_mesh, padded_rows, split_rows
 
 
 def _block(kind: str, M: sp.csr_matrix, dtype, device, col_base: int,
@@ -142,7 +145,7 @@ class _ShardedOp:
 
     @property
     def shape(self):
-        return (self.n_pad, self.n_pad)
+        return (self.n_pad, self.n_pad if self.halo else self.n_src)
 
     @classmethod
     def from_scipy(cls, A, mesh, dtype=None, n_pad=None, kind=None,
@@ -373,32 +376,41 @@ class _ShardedOp:
             .to(torch.int32).to(device)), lanes)
 
     def matvec(self, x):
+        """y = A x on any mesh.  A ``Rows`` (a split mesh's vector, of
+        ``n_in`` entries, as ``shard_vec`` makes it) gives a ``Rows``.  A
+        plain tensor on the controller device, fitted with zeros or cut
+        to the columns the operator reads (``n_pad`` for a halo, the
+        operator's columns otherwise), gives one tensor of ``n_pad``
+        entries there, zeros past the operator's rows: on a split mesh it
+        is placed on the device groups (``_place``), each group's blocks
+        multiply on its device and its rows come back to the controller
+        (``gather``)."""
         if isinstance(x, Rows):
             return self._matvec_split(x)
-        src = self._sources(x)
-        if self.stacked:
-            blk = self.blocks[0]
-            ys = [x.new_zeros(self.active * self.w) if blk is None else
-                  blk.matvec(src.reshape(-1) if self.halo else src[0])]
-        else:
-            ys = [x.new_zeros(self.w) if blk is None else blk.matvec(src[s])
-                  for s, blk in enumerate(self.blocks)]
-        pad = (self.mesh.size - self.active) * self.w
-        if pad:
-            ys.append(x.new_zeros(pad))
-        return torch.cat(ys)
+        if self.mesh.split:
+            self.mesh._check(x)
+            return gather(self._products(self._place(x), x.dtype))
+        return self._products([self._sources(x)], x.dtype).parts[0]
 
     def _matvec_split(self, x: Rows) -> Rows:
         """The product on a split mesh: each device's shards read their
         sources there (``_sources_split``) and write its rows of y."""
-        if x.n != self.n_pad:
-            raise ValueError(f"a Rows of {x.n} entries for an operator on "
-                             f"{self.n_pad} rows")
+        if x.n != self.n_in:
+            raise ValueError(f"a Rows of {x.n} entries for an operator "
+                             f"that takes {self.n_in}")
+        return self._products(self._sources_split(x), x.dtype)
+
+    def _products(self, sources, dtype) -> Rows:
+        """Each device group's rows of y, on its device: its blocks read
+        ``sources[g]`` there (a group without active shards reads nothing
+        and gives zeros).  On a mesh of one device, its one part is y."""
         parts = []
-        for (g, first, k), src in zip(self._spans(),
-                                      self._sources_split(x)):
+        for (g, first, k), src in zip(self._spans(), sources):
             grp = self.mesh.groups[g]
-            zero = x.parts[g].new_zeros
+
+            def zero(m, dev=grp.device):
+                return torch.zeros(m, dtype=dtype, device=dev)
+
             if self.stacked:
                 blk = self.blocks[g]
                 ys = [zero(k * self.w) if blk is None else
@@ -476,6 +488,17 @@ class HaloELL(_ShardedOp):
             [p.view(-1, self.w)[:k] for p, (_, _, k) in
              zip(x.parts, self._spans())], self.label)
 
+    @property
+    def n_in(self) -> int:
+        return self.n_pad
+
+    def _place(self, x):
+        """A plain x on the controller as each group's windows: its rows
+        split over the groups (``split_rows``), then exchanged as a
+        ``Rows`` is."""
+        return self._sources_split(split_rows(_fit(x, self.n_pad),
+                                              self.mesh, self.label))
+
 
 class RowShardedOp(_ShardedOp):
     """A row-sharded operator on any partition: each shard reads the
@@ -494,15 +517,25 @@ class RowShardedOp(_ShardedOp):
         return 0
 
     def _sources(self, x):
-        full = self.mesh.all_gather(_fit(x, self.n_src), self.label)
-        return [full] * self.active
+        return self.mesh.all_gather(_fit(x, self.n_src), self.label)
+
+    @property
+    def n_in(self) -> int:
+        """``shard_vec``'s padding of the columns."""
+        return padded_rows(self.n_src, self.mesh)
 
     def _sources_split(self, x: Rows):
-        """The whole vector on every group's device."""
-        if self.n_src != x.n:
-            raise NotImplementedError("a rectangular RowShardedOp on a "
-                                      "split mesh")
-        return self.mesh.all_gather(x.parts, self.label)
+        """The whole vector on every group's device, cut to the columns."""
+        return [full[:self.n_src] for full in
+                self.mesh.all_gather(x.parts, self.label)]
+
+    def _place(self, x):
+        """A plain x on the controller, whole on the device of every group
+        with active shards (one copy to each other group; the log counts
+        the all-gather the one-device mesh counts)."""
+        full = self.mesh.all_gather(_fit(x, self.n_src), self.label)
+        return [self.mesh._to_group(full, 0, g, self.label) if k else None
+                for g, _, k in self._spans()]
 
 
 class HaloSpMV:
@@ -523,9 +556,6 @@ class HaloSpMV:
         x = torch.as_tensor(np.asarray(x) if not isinstance(
             x, torch.Tensor) else x, dtype=self.op.dtype,
             device=self.mesh.device)
-        x = _fit(x, self.op.n_pad)
-        if self.mesh.split:
-            x = split_rows(x, self.mesh, "HaloSpMV")
         return self.op.matvec(x)[: self.n]
 
     def __matmul__(self, x):

@@ -585,9 +585,13 @@ def replicate(tree, mesh: Mesh):
 
 
 def shard_ell(A, mesh: Mesh, pad: bool = True):
-    """An ``ELL`` row-sharded over the mesh (one ELL block per shard, read
-    against the all-gathered vector); rows that do not divide the mesh
-    pad with empty rows, which give 0."""
+    """A device operator of any shape (an ``ELL`` as the JAX package's
+    takes, or any of the port's containers) row-sharded over the mesh: a
+    ``RowShardedOp`` whose shards read the all-gathered vector (the
+    gather kinds one stacked block a device group); rows that do not
+    divide the mesh pad with empty rows, which give 0.  Its product
+    takes a plain tensor on any mesh, or on a split mesh the ``Rows``
+    that ``shard_vec`` makes of one (``_ShardedOp.matvec``)."""
     from .halo import RowShardedOp
 
     if A.shape[0] % mesh.size and not pad:

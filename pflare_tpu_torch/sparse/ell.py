@@ -441,9 +441,12 @@ class ELL:
         return ELL(self.pattern, self.data.to(device), self.cols.to(device))
 
     def to_scipy(self) -> sp.csr_matrix:
+        """The matrix, from storage of any width >= the pattern's K (a
+        stacked shard block keeps its operator's)."""
         flat = self.data.cpu().numpy().reshape(-1)
+        sop, K = self.pattern.slot_of_pos, self.pattern.K
         return sp.csr_matrix(
-            (flat[self.pattern.slot_of_pos],
+            (flat[sop // K * self.data.shape[1] + sop % K],
              self.pattern.indices.astype(np.int64), self.pattern.indptr),
             shape=self.pattern.shape)
 

@@ -550,6 +550,53 @@ def test_mesh_over_two_cards_matches_one_card():
             A.astype(np.float32)).solve_device(b, mesh=two)
 
 
+def test_shard_ell_over_two_cards_matches_one_card():
+    """``shard_ell`` of a square and of a rectangular f64 operator (96^2
+    and its first n/2 + 5 columns, which pad to 4 shards) as ELL, TELL
+    and DELL in turn, on 4 shards over two cards against the same 4
+    shards on one card, each given a plain x and a ``shard_vec`` x: y bit
+    for bit, within 1e-12 of scipy, the gather kernel launched once a
+    product on each card that holds shards."""
+    from pflare_tpu_torch.parallel import make_mesh, shard_ell, shard_vec
+    from pflare_tpu_torch.parallel.mesh import gather
+    from pflare_tpu_torch.sparse import ELL, TELL
+    from pflare_tpu_torch.sparse import ell as sell
+    from pflare_tpu_torch.sparse.dell import DELL
+
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    makers = {"ell": lambda M: ELL.from_scipy(M).to(cards[0]),
+              "tell": lambda M: TELL.from_scipy(M).to(cards[0]),
+              "dell": lambda M: DELL.from_scipy(M, dtype=torch.float64,
+                                                device=cards[0])}
+    meshes = {(0,): make_mesh(devices=[cards[0]] * 4),
+              (0, 1): make_mesh(devices=[cards[0], cards[0], cards[1],
+                                         cards[1]])}
+    A = sp.csr_matrix(tpf.adv_diff_2d(96))
+    for kind, make in makers.items():
+        rng = np.random.default_rng(13)
+        for M in (A, sp.csr_matrix(A[:, :A.shape[0] // 2 + 5])):
+            x = torch.as_tensor(rng.standard_normal(M.shape[1]),
+                                device=cards[0])
+            ys = []
+            for on, mesh in meshes.items():
+                op = shard_ell(make(M), mesh)
+                for xin in (x, shard_vec(x, mesh)):
+                    sell.LAUNCHES_BY_DEVICE.clear()
+                    ys.append(gather(op.matvec(xin)))
+                    assert dict(sell.LAUNCHES_BY_DEVICE) == {
+                        i: 1 for i in on}, kind
+            torch.cuda.synchronize()
+            assert all(torch.equal(y, ys[0]) for y in ys[1:]), kind
+            got = ys[0].cpu().numpy()
+            np.testing.assert_allclose(got[:M.shape[0]],
+                                       M @ x.cpu().numpy(), rtol=0,
+                                       atol=1e-12, err_msg=kind)
+            assert not got[M.shape[0]:].any(), kind
+
+
 def test_segment_sum_card_equals_cpu():
     """``segment_sum`` on the card equals the CPU's ``index_add_`` into
     zeros bit for bit, on values of many magnitudes in runs of up to

@@ -11,13 +11,16 @@ exchange between groups is a real copy, as between cards."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import pflare_tpu as jpf
 import pflare_tpu_torch as tpf
 from pflare_tpu import parallel as jpar
 from pflare_tpu_torch import parallel as tpar
-from pflare_tpu_torch.parallel.mesh import Rows, _spread
+from pflare_tpu_torch.parallel.mesh import Rows, _spread, gather
+from pflare_tpu_torch.sparse import ELL, TELL
+from pflare_tpu_torch.sparse.dell import DELL
 from torch_reference import host_kernels  # noqa: F401
 
 torch.set_num_threads(1)
@@ -29,6 +32,11 @@ LAYOUTS = {"4 groups": [f"cpu:{s // 2}" for s in range(8)],
 # the JAX package's distributed setup and sharded solve at 32^2, by host
 # kernel pairing (each worker makes it at most once)
 _REFERENCE = {}
+# the containers shard_ell takes, from a host matrix
+CONTAINERS = {"ell": ELL.from_scipy, "tell": TELL.from_scipy,
+              "dell": lambda M: DELL.from_scipy(M, device="cpu")}
+# the JAX package's shard_ell products (plain x, shard_vec x) by case
+_SHARD_ELL = {}
 
 
 @pytest.fixture(params=list(LAYOUTS))
@@ -208,3 +216,133 @@ def test_make_mesh_contiguous_runs():
     with pytest.raises(ValueError):
         tpar.make_mesh(devices=["cpu:0", "cpu:1", "cpu:0"])
     assert not tpar.make_mesh(8, device="cpu").split
+
+
+def _shard_ell_reference(case, A, x):
+    """The JAX package's ``shard_ell`` of A on its 8 devices, given x
+    plain and through its ``shard_vec``."""
+    if case not in _SHARD_ELL:
+        jmesh = jpar.make_mesh(8)
+        E = jpar.shard_ell(jpf.ELL.from_scipy(A), jmesh)
+        xj = jnp.asarray(x)
+        _SHARD_ELL[case] = (np.asarray(E.matvec(xj)),
+                            np.asarray(E.matvec(jpar.shard_vec(xj, jmesh))))
+    return _SHARD_ELL[case]
+
+
+def _peer(mesh):
+    """The bytes that crossed devices, by label."""
+    return {k[0]: v[1] for k, v in mesh.log.items() if k[1] == "peer"}
+
+
+def _shard_ell_both(split, A, x, kind):
+    """``shard_ell`` of A (as ``kind``) on the split mesh and on the
+    one-device 8-shard mesh, each given x plain and through its
+    ``shard_vec``: the products (a ``Rows`` gathered to one tensor), the
+    operators and the split mesh's bytes across devices of each."""
+    one = tpar.make_mesh(8, device="cpu")
+    Es = tpar.shard_ell(CONTAINERS[kind](A), split)
+    E1 = tpar.shard_ell(CONTAINERS[kind](A), one)
+    xt = torch.as_tensor(x)
+    split.reset_log()
+    y_plain = Es.matvec(xt)
+    peer_plain = _peer(split)
+    want_plain = E1.matvec(xt)
+    # the all-gather of the columns, as on one device
+    assert _exchanges(split) == _exchanges(one) == {
+        ("", "all_gather"): [1, Es.n_src * 8 * 7]}
+    xs = tpar.shard_vec(xt, split)
+    split.reset_log()
+    y_rows = Es.matvec(xs)
+    peer_rows = _peer(split)
+    assert isinstance(xs, Rows) and isinstance(y_rows, Rows)
+    for got, want in ((y_plain, want_plain),
+                      (gather(y_rows), E1.matvec(tpar.shard_vec(xt, one)))):
+        assert isinstance(got, torch.Tensor)
+        assert got.shape == (E1.n_pad,) and torch.equal(got, want)
+    return y_plain, gather(y_rows), Es, peer_plain, peer_rows
+
+
+@pytest.mark.parametrize("grid", [16, 15], ids=["matches", "padded"])
+def test_sharded_spmv_on_groups(split, grid):
+    """The twins of the reference's ``test_sharded_spmv_matches`` (16^2)
+    and ``test_sharded_spmv_padded`` (15^2, rows padded to 232) over the
+    device groups, for each container ``shard_ell`` takes (ELL, TELL and
+    DELL in turn): a plain x gives every one of the ``n_pad`` rows, zeros
+    past n, and a ``shard_vec`` x a ``Rows``; both within 1e-12 of the
+    JAX package's ``shard_ell`` product and bit for bit the one-device
+    mesh's."""
+    A = jpf.adv_diff_2d(grid)
+    n = A.shape[0]
+    # the reference tests' seeds
+    x = np.random.default_rng({16: 0, 15: 1}[grid]).standard_normal(n)
+    want_plain, want_rows = _shard_ell_reference(grid, A, x)
+    for kind in CONTAINERS:
+        y_plain, y_rows, _, _, _ = _shard_ell_both(split, A, x, kind)
+        for got, want in ((y_plain, want_plain), (y_rows, want_rows)):
+            np.testing.assert_allclose(got[:n].numpy(), want[:n], rtol=0,
+                                       atol=1e-12, err_msg=kind)
+            assert not got[n:].any(), kind
+        np.testing.assert_allclose(y_plain[:n].numpy(), A @ x, rtol=0,
+                                   atol=1e-12, err_msg=kind)
+
+
+def test_halo_plain_vector_on_groups(split):
+    """A ``HaloELL`` of DIA, banded and stacked TELL blocks in turn over
+    the device groups, given a plain tensor: all ``n_pad`` rows, bit for
+    bit the one-device mesh's, with its exchanges; a ``Rows`` still gives
+    a ``Rows`` of the same values.  Each kind gets meshes of its own, so
+    the exchange logs are its alone."""
+    A = tpf.adv_diff_2d(30)
+    n = A.shape[0]
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(n))
+    for kind in ("dia", "banded", "tell"):
+        mesh = tpar.make_mesh(devices=split.devices)
+        one = tpar.make_mesh(8, device="cpu")
+        Hs, H1 = (tpar.HaloELL.from_scipy(A, m, kind=kind)
+                  for m in (mesh, one))
+        got, want = Hs.matvec(x), H1.matvec(x)
+        assert got.shape == (H1.n_pad,) and torch.equal(got, want), kind
+        np.testing.assert_allclose(got[:n].numpy(), A @ x.numpy(), rtol=0,
+                                   atol=1e-12, err_msg=kind)
+        assert not got[n:].any() and _exchanges(mesh) == _exchanges(one)
+        rows = Hs @ tpar.shard_vec(x, mesh)
+        assert isinstance(rows, Rows) and torch.equal(gather(rows), want)
+
+
+@pytest.mark.parametrize("shape", [(40, 24), (24, 40), (40, 25), (12, 9)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_rectangular_shard_ell_on_groups(split, shape):
+    """``shard_ell`` of a rectangular ELL over the device groups (the
+    columns 25 padded to 32 by ``shard_vec``; 12 rows leave the last
+    shards, and on 8 groups the last groups, without rows), given x plain
+    and sharded: within 1e-12 of the JAX package's ``shard_ell`` and of
+    scipy, bit for bit the one-device mesh's, its matrix the padded A.
+    The bytes across devices: a plain x goes whole to each other group
+    with rows, and each other group's rows of y come back; a ``Rows`` of
+    the padded columns is split from the controller by ``shard_vec``,
+    then each group receives every other group's part."""
+    m, n_cols = shape
+    A = sp.csr_matrix(sp.random(m, n_cols, density=0.25, format="csr",
+                                random_state=np.random.RandomState(m))
+                      + sp.eye(m, n_cols))
+    x = np.random.default_rng(n_cols).standard_normal(n_cols)
+    want_plain, want_rows = _shard_ell_reference(shape, A, x)
+    y_plain, y_rows, Es, peer_plain, peer_rows = _shard_ell_both(
+        split, A, x, "ell")
+    for got, want in ((y_plain, want_plain), (y_rows, want_rows)):
+        np.testing.assert_allclose(got[:m].numpy(), want[:m], rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(got[:m].numpy(), A @ x, rtol=0,
+                                   atol=1e-12)
+        assert not got[m:].any()
+    n_pad, w = Es.n_pad, Es.n_pad // 8
+    own = split.groups[0].stop * w            # the controller's rows of y
+    busy = sum(g.start < Es.active for g in split.groups)
+    assert peer_plain == {"": (busy - 1) * n_cols * 8,
+                          "gather": (n_pad - own) * 8}
+    n_in = -(-n_cols // 8) * 8
+    assert peer_rows == {"": (len(split.groups) - 1) * n_in * 8}
+    M = Es.to_scipy()
+    assert Es.shape == M.shape == (n_pad, n_cols)
+    assert abs(M[:m] - A).max() == 0 and M[m:].nnz == 0

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The row mesh over several cards: ``chip_smoke.py``'s phase 15 (d)
 alone, on the inputs the smoke builds for it (phase 7's 2048^2 f32
-hierarchy, the 512^2 main-path matrix), then a probe of whether a
-PyTorch CUDA graph captures work on two cards.
+hierarchy and its matrix, the 512^2 main-path matrix), then a probe of
+whether a PyTorch CUDA graph captures work on two cards.
 
     python3 tools/torch_mesh_cards.py [--out mesh_cards.json]
 
@@ -113,7 +113,7 @@ def main():
           flush=True)
     b2k = np.random.default_rng(1).standard_normal(A2k.shape[0])
     out = smoke.phase15d(np, torch, tpf, tdia, tbanded, dev, cards, A512,
-                         pc2k, b2k)
+                         pc2k, A2k, b2k)
     if len(cards) >= 2:
         out = dict(out or {}, capture_probe=capture_probe(torch))
         print(f"# capture probe: {out['capture_probe']}", flush=True)
