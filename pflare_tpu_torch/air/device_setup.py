@@ -23,6 +23,7 @@ the host setup.  The setup computes in the dtype it is given.
 
 from __future__ import annotations
 
+from contextlib import ExitStack
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -47,7 +48,7 @@ from ..sparse.dell import (DELL, OFFBIG, PADCOL, _pad_cols, apply_restrict_plan,
                            union_patterns)
 from ..sparse.dia import DIA
 from ..sparse.dtypes import numpy_dtype
-from ..utils.timers import current_syncs, timer
+from ..utils.timers import current_syncs, span, timer
 from .hierarchy import DeviceHierarchy
 
 
@@ -850,7 +851,12 @@ def setup_hierarchy_device(A, opts: AIROptions, dtype=torch.float32,
     levels: list[DeviceLevel] = []
     auto_truncated = False
     coarse_inv = None
+    # one setup.level span a level, tagged with its index; the coarsest
+    # level's covers the probe or split that stopped the loop, and its
+    # inverse
+    level_span = ExitStack()
     while len(levels) < opts.max_levels - 1:
+        level_span.enter_context(span("setup.level", len(levels)))
         n = A.shape[0]
         syncs0 = current_syncs()
         # auto-truncation probe (reference: src/AIR_MG_Setup.F90:158-256):
@@ -1021,20 +1027,25 @@ def setup_hierarchy_device(A, opts: AIROptions, dtype=torch.float32,
                 inv_Aff.mat.cols if inv_Aff.kind == "assembled" else None),
             syncs=None if syncs0 is None else syncs1 - syncs0))
         A = A_next
+        level_span.close()
+    else:   # the depth ran out: the coarsest level's span opens here
+        level_span.enter_context(span("setup.level", len(levels)))
 
     syncs0 = current_syncs()
-    if not auto_truncated:
-        with timer("air_inverse"):
-            coarse_inv = _inverse_device(
-                A, opts, opts.coarsest_inverse_type,
-                opts.coarsest_poly_order, opts.coarsest_matrix_free_polys,
-                opts.seed, dtype)
+    with level_span:
+        if not auto_truncated:
+            with timer("air_inverse"):
+                coarse_inv = _inverse_device(
+                    A, opts, opts.coarsest_inverse_type,
+                    opts.coarsest_poly_order,
+                    opts.coarsest_matrix_free_polys, opts.seed, dtype)
     solve_form = DeviceHierarchy([lvl.device for lvl in levels], coarse_inv,
                                  top_A, False)
     _optimize_layouts(solve_form)
     if top_A.data.is_cuda:
         # before any capture: a CUDA graph of the solve cannot pack
-        pack_dells(solve_form_dells(solve_form))
+        with span("dell.pack"):
+            pack_dells(solve_form_dells(solve_form))
     syncs1 = current_syncs()
     return DeviceSetupHierarchy(
         levels, A, coarse_inv, opts, top_A, solve_form, auto_truncated,

@@ -33,7 +33,7 @@ from ..solvers.jitted import (gmres_right_fixed, gmres_stationary,
                               richardson_fixed)
 from ..solvers.krylov import SolveResult, fgmres, gmres, richardson
 from ..utils import graphs
-from ..utils.timers import print_timers, timer
+from ..utils.timers import print_timers, span, timer
 from .hierarchy import DeviceHierarchy, Hierarchy, setup_hierarchy
 from .smooth import vcycle_full, vcycle_kaskade
 from .stats import compute_stats, print_stats
@@ -205,36 +205,38 @@ class PCAIR:
                                    device_setup_unsupported_reason,
                                    setup_hierarchy_device)
 
-        if self._frozen and self.hierarchy is not None:
+        with span("pcair.setup_device"):
+            if self._frozen and self.hierarchy is not None:
+                return self
+            if dtype is not None:
+                self.dtype = dtype
+            reason = (device_setup_unsupported_reason(self.options)
+                      or device_setup_fault_reason(self.options))
+            if reason is not None:
+                print("# setup_device: option(s) outside the device envelope, "
+                      f"using the host setup: {reason}", file=sys.stderr)
+                return self.setup(A)
+            if isinstance(A, DELL):
+                if self.options.reorder != "none":
+                    raise ValueError(
+                        "setup_device(DELL) cannot reorder; pass a scipy "
+                        "matrix or set reorder='none'")
+                if A.device.type != self.device.type:
+                    raise ValueError(f"setup_device: the DELL lies on "
+                                     f"{A.device}, this PCAIR solves on "
+                                     f"{self.device}")
+                self._perm = self._iperm = None
+            else:
+                with span("pcair.reorder"):
+                    A = self._apply_reorder(sp.csr_matrix(A))
+            with timer("air_setup"):
+                self.hierarchy = setup_hierarchy_device(
+                    A, self.options, dtype=self.dtype, device=self.device)
+            self._device_hierarchy = self.hierarchy.solve_form
+            self._dist = None
+            self._upload_owed = False
+            self.drop_graphs()
             return self
-        if dtype is not None:
-            self.dtype = dtype
-        reason = (device_setup_unsupported_reason(self.options)
-                  or device_setup_fault_reason(self.options))
-        if reason is not None:
-            print("# setup_device: option(s) outside the device envelope, "
-                  f"using the host setup: {reason}", file=sys.stderr)
-            return self.setup(A)
-        if isinstance(A, DELL):
-            if self.options.reorder != "none":
-                raise ValueError(
-                    "setup_device(DELL) cannot reorder; pass a scipy "
-                    "matrix or set reorder='none'")
-            if A.device.type != self.device.type:
-                raise ValueError(f"setup_device: the DELL lies on "
-                                 f"{A.device}, this PCAIR solves on "
-                                 f"{self.device}")
-            self._perm = self._iperm = None
-        else:
-            A = self._apply_reorder(sp.csr_matrix(A))
-        with timer("air_setup"):
-            self.hierarchy = setup_hierarchy_device(
-                A, self.options, dtype=self.dtype, device=self.device)
-        self._device_hierarchy = self.hierarchy.solve_form
-        self._dist = None
-        self._upload_owed = False
-        self.drop_graphs()
-        return self
 
     def on(self, device) -> "PCAIR":
         """A PCAIR that shares this one's host hierarchy (and reordering)
@@ -364,39 +366,40 @@ class PCAIR:
         ``gmres_stationary``'s operator and residual.  Returns a
         SolveResult whose ``x`` is a device tensor in the caller's
         order."""
-        if eager is None:
-            eager = os.environ.get("PFLARE_EAGER_KSP") == "1"
-        dh = self.upload()
-        b = self._to_internal(self._vector(b))
-        x0 = None if x0 is None else self._to_internal(self._vector(x0))
-        M = self._precond(dh)
-        program = None
-        if self._graphed():
-            def program(fn, name):
-                return self._program((name, side, b.shape[0]), fn)
+        with span("pcair.solve"):
+            if eager is None:
+                eager = os.environ.get("PFLARE_EAGER_KSP") == "1"
+            dh = self.upload()
+            b = self._to_internal(self._vector(b))
+            x0 = None if x0 is None else self._to_internal(self._vector(x0))
+            M = self._precond(dh)
+            program = None
+            if self._graphed():
+                def program(fn, name):
+                    return self._program((name, side, b.shape[0]), fn)
 
-            precond = program(M, "precond")
-        else:
-            precond = M
-        if ksp == "gmres" and (eager or not self.jit):
-            res = gmres(dh.top, b, x0=x0, M=precond, side=side, rtol=rtol,
-                        atol=atol, max_it=max_it, restart=restart)
-        elif ksp == "gmres":
-            x, its, hist, done = gmres_stationary(
-                dh.top.matvec, M, b, x0, rtol, atol, int(max_it),
-                max(1, min(int(restart), int(max_it))), side,
-                program=program)
-            res = SolveResult(x, its, done, list(hist[: its + 1]))
-        elif ksp == "fgmres":
-            res = fgmres(dh.top, b, x0=x0, M=precond, rtol=rtol, atol=atol,
-                         max_it=max_it, restart=restart)
-        elif ksp == "richardson":
-            res = richardson(dh.top, b, x0=x0, M=precond, rtol=rtol,
-                             atol=atol, max_it=max_it)
-        else:
-            raise ValueError(f"unknown ksp {ksp!r}")
-        res.x = self._from_internal(res.x)
-        return res
+                precond = program(M, "precond")
+            else:
+                precond = M
+            if ksp == "gmres" and (eager or not self.jit):
+                res = gmres(dh.top, b, x0=x0, M=precond, side=side, rtol=rtol,
+                            atol=atol, max_it=max_it, restart=restart)
+            elif ksp == "gmres":
+                x, its, hist, done = gmres_stationary(
+                    dh.top.matvec, M, b, x0, rtol, atol, int(max_it),
+                    max(1, min(int(restart), int(max_it))), side,
+                    program=program)
+                res = SolveResult(x, its, done, list(hist[: its + 1]))
+            elif ksp == "fgmres":
+                res = fgmres(dh.top, b, x0=x0, M=precond, rtol=rtol, atol=atol,
+                             max_it=max_it, restart=restart)
+            elif ksp == "richardson":
+                res = richardson(dh.top, b, x0=x0, M=precond, rtol=rtol,
+                                 atol=atol, max_it=max_it)
+            else:
+                raise ValueError(f"unknown ksp {ksp!r}")
+            res.x = self._from_internal(res.x)
+            return res
 
     def solve_device(self, b, max_it: int = 10, ksp: str = "richardson",
                      x0=None, mesh=None):

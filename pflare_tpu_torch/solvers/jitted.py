@@ -19,6 +19,8 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
+from ..utils.timers import span
+
 # device-to-host reads made by gmres_stationary (the tests and chip_smoke.py
 # count them)
 HOST_READS = 0
@@ -28,7 +30,8 @@ def _read(t) -> np.ndarray:
     """One counted device-to-host read."""
     global HOST_READS
     HOST_READS += 1
-    return t.cpu().numpy()
+    with span("gmres.read"):
+        return t.cpu().numpy()
 
 
 def richardson_fixed(matvec, precond, b, max_it: int, x0=None):
@@ -146,6 +149,15 @@ def gmres_stationary(matvec, precond, b, x0, rtol, atol, max_it: int,
     zero RHS.  The residual that ends one cycle starts the next, so a
     solve makes iterations + cycles + 1 host reads.
 
+    Spans (``utils/timers.py::collect``): ``gmres.start`` (the initial
+    residual and its read, and each cycle's first basis vector),
+    ``gmres.orthogonalise`` (the two Gram-Schmidt passes and the
+    normalisation, as enqueued), ``gmres.read`` (each host read),
+    ``gmres.rotate`` (the Givens rotations and the convergence test) and
+    ``gmres.update`` (the back-substitution, y's upload, the x update and
+    the cycle's closing residual); with the programs' spans they cover
+    the solve.
+
     ``program(fn, name)`` turns each of the three device programs of a
     step into the callable the solve runs: "op" (the preconditioned
     operator), "resid" (x, b -> the residual the method monitors) and
@@ -171,76 +183,84 @@ def gmres_stationary(matvec, precond, b, x0, rtol, atol, max_it: int,
         r = b - matvec(x)
         return precond(r) if side == "left" else r
 
-    op, resid = program(_op, "op"), program(_resid, "resid")
-    pre = program(precond, "precond")
-    b_eff = pre(b) if side == "left" else b
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = resid(x, b)
-    rn_t = torch.linalg.norm(r)
-    rhs_norm, rn = _read(torch.stack([torch.linalg.norm(b_eff), rn_t]))
-    if not rhs_norm > 0:
-        rhs_norm = rn if rn > 0 else npdt.type(1.0)
-    tol = max(npdt.type(rtol) * rhs_norm, npdt.type(atol))
-    hist = np.zeros(max_it + 1, dtype=npdt)
-    hist[0] = rn
-    V = torch.empty((m + 1, b.shape[0]), dtype=dtype, device=device)
-    diag = np.arange(m)
-    tot = 0
-    done = rn <= tol
-    while not done and tot < max_it:
-        V[0] = r / torch.where(rn_t > 0, rn_t, one)
-        H = np.zeros((m + 1, m), dtype=npdt)
-        cs = np.zeros(m, dtype=npdt)
-        sn = np.zeros(m, dtype=npdt)
-        g = np.zeros(m + 1, dtype=npdt)
-        g[0] = res = rn
-        j = 0
-        while j < m and tot + j < max_it and res > tol:
-            w = op(V[j])
-            Vj = V[: j + 1]
-            h1 = torch.mv(Vj, w)
-            w = w - torch.mv(Vj.T, h1)
-            h2 = torch.mv(Vj, w)
-            w = w - torch.mv(Vj.T, h2)
-            hj1 = torch.linalg.norm(w)
-            V[j + 1] = w / torch.where(hj1 > 0, hj1, one)
-            hcol = np.zeros(m + 1, dtype=npdt)
-            hcol[: j + 2] = _read(torch.cat([h1 + h2, hj1[None]]))
-            for i in range(j):     # the stored rotations
-                hi, hi1 = hcol[i], hcol[i + 1]
-                hcol[i] = cs[i] * hi + sn[i] * hi1
-                hcol[i + 1] = -sn[i] * hi + cs[i] * hi1
-            a, bb = hcol[j], hcol[j + 1]
-            rho = np.hypot(a, bb)
-            gj = g[j]
-            if rho > 0:
-                cs[j], sn[j] = a / rho, bb / rho
-                hcol[j] = cs[j] * a + sn[j] * bb
-                g[j + 1] = -sn[j] * gj
-                g[j] = cs[j] * gj
-                res = abs(g[j + 1])
-            else:
-                # exact breakdown: the column adds nothing, and the residual
-                # stays at its value before the step
-                cs[j], sn[j] = 1, 0
-                res = abs(gj)
-            hcol[j + 1] = 0
-            H[:, j] = hcol
-            hist[tot + j + 1] = res
-            j += 1
-        # back-substitution: the diagonal of unused and breakdown columns
-        # is patched to 1 and their g entry to 0, so y there is 0
-        Hs = H[:m, :m]
-        alive = (diag < j) & (np.abs(Hs[diag, diag]) > 0)
-        Hs[diag, diag] = np.where(alive, Hs[diag, diag], 1)
-        y = sla.solve_triangular(Hs, np.where(alive, g[:m], 0), lower=False)
-        update = torch.mv(V[:j].T, torch.as_tensor(y[:j], dtype=dtype,
-                                                   device=device))
-        x = x + (pre(update) if side == "right" else update)
-        tot += j
+    with span("gmres.start"):
+        op, resid = program(_op, "op"), program(_resid, "resid")
+        pre = program(precond, "precond")
+        b_eff = pre(b) if side == "left" else b
+        x = torch.zeros_like(b) if x0 is None else x0
         r = resid(x, b)
         rn_t = torch.linalg.norm(r)
-        rn = _read(rn_t)[()]
-        hist[tot] = rn
+        rhs_norm, rn = _read(torch.stack([torch.linalg.norm(b_eff), rn_t]))
+        if not rhs_norm > 0:
+            rhs_norm = rn if rn > 0 else npdt.type(1.0)
+        tol = max(npdt.type(rtol) * rhs_norm, npdt.type(atol))
+        hist = np.zeros(max_it + 1, dtype=npdt)
+        hist[0] = rn
+        V = torch.empty((m + 1, b.shape[0]), dtype=dtype, device=device)
+        diag = np.arange(m)
+        tot = 0
         done = rn <= tol
+    while not done and tot < max_it:
+        with span("gmres.start"):
+            V[0] = r / torch.where(rn_t > 0, rn_t, one)
+            H = np.zeros((m + 1, m), dtype=npdt)
+            cs = np.zeros(m, dtype=npdt)
+            sn = np.zeros(m, dtype=npdt)
+            g = np.zeros(m + 1, dtype=npdt)
+            g[0] = res = rn
+            j = 0
+        while j < m and tot + j < max_it and res > tol:
+            w = op(V[j])
+            with span("gmres.orthogonalise"):
+                Vj = V[: j + 1]
+                h1 = torch.mv(Vj, w)
+                w = w - torch.mv(Vj.T, h1)
+                h2 = torch.mv(Vj, w)
+                w = w - torch.mv(Vj.T, h2)
+                hj1 = torch.linalg.norm(w)
+                V[j + 1] = w / torch.where(hj1 > 0, hj1, one)
+                col = torch.cat([h1 + h2, hj1[None]])
+            hcol = np.zeros(m + 1, dtype=npdt)
+            hcol[: j + 2] = _read(col)
+            with span("gmres.rotate"):
+                for i in range(j):     # the stored rotations
+                    hi, hi1 = hcol[i], hcol[i + 1]
+                    hcol[i] = cs[i] * hi + sn[i] * hi1
+                    hcol[i + 1] = -sn[i] * hi + cs[i] * hi1
+                a, bb = hcol[j], hcol[j + 1]
+                rho = np.hypot(a, bb)
+                gj = g[j]
+                if rho > 0:
+                    cs[j], sn[j] = a / rho, bb / rho
+                    hcol[j] = cs[j] * a + sn[j] * bb
+                    g[j + 1] = -sn[j] * gj
+                    g[j] = cs[j] * gj
+                    res = abs(g[j + 1])
+                else:
+                    # exact breakdown: the column adds nothing, and the
+                    # residual stays at its value before the step
+                    cs[j], sn[j] = 1, 0
+                    res = abs(gj)
+                hcol[j + 1] = 0
+                H[:, j] = hcol
+                hist[tot + j + 1] = res
+            j += 1
+        with span("gmres.update"):
+            # back-substitution: the diagonal of unused and breakdown
+            # columns is patched to 1 and their g entry to 0, so y there
+            # is 0
+            Hs = H[:m, :m]
+            alive = (diag < j) & (np.abs(Hs[diag, diag]) > 0)
+            Hs[diag, diag] = np.where(alive, Hs[diag, diag], 1)
+            y = sla.solve_triangular(Hs, np.where(alive, g[:m], 0),
+                                     lower=False)
+            update = torch.mv(V[:j].T, torch.as_tensor(y[:j], dtype=dtype,
+                                                       device=device))
+            x = x + (pre(update) if side == "right" else update)
+            tot += j
+            r = resid(x, b)
+            rn_t = torch.linalg.norm(r)
+            rn = _read(rn_t)[()]
+            hist[tot] = rn
+            done = rn <= tol
     return x, tot, hist, bool(done)

@@ -21,7 +21,11 @@ one:
   exchange logs (``parallel.mesh.Mesh.record``) change only while Python
   runs.  The capture's changes are taken back (it launched nothing) and
   added at every replay, so they read as they would without graphs;
-* no fallback: a capture or replay that fails raises.
+* no fallback: a capture or replay that fails raises;
+* spans (``timers.collect``): each call is a ``program`` span tagged
+  with the program's name; inside it ``graph.launch`` covers a replay's
+  ``replay()`` alone and ``graph.capture`` the first call's warm-up and
+  capture, whose clock reads also give ``capture_s``.
 
 With ``KEEP_GRAPHS`` set before a capture, the captured graph is kept
 beside its instantiation, and ``Program.graph_kernels`` reads from it the
@@ -42,10 +46,11 @@ import collections
 import os
 import re
 import tempfile
-import time
 import warnings
 
 import torch
+
+from .timers import Stopwatch, span
 
 # (kernel name, module) of each kernel whose module's KERNEL_LAUNCHES a
 # replay advances, in the order of registration (``count_launches``)
@@ -192,21 +197,23 @@ class Program:
         self.capture_s = None   # seconds of warm-up + capture
 
     def __call__(self, *args):
-        if self.graph is None:
-            return self._first_call(args)
-        for buf, a in zip(self._inputs, args):
-            if buf.shape != a.shape or buf.dtype != a.dtype:
-                raise ValueError(f"{self.name}: input {tuple(a.shape)} "
-                                 f"{a.dtype}, captured for "
-                                 f"{tuple(buf.shape)} {buf.dtype}")
-            buf.copy_(a)
-        try:
-            self.graph.replay()
-        except Exception as exc:
-            raise RuntimeError(f"replay of the CUDA graph of {self.name} "
-                               f"failed: {exc}") from exc
-        _advance(self._delta, self.meshes)
-        return _map(torch.clone, self._outputs)
+        with span("program", self.name):
+            if self.graph is None:
+                return self._first_call(args)
+            for buf, a in zip(self._inputs, args):
+                if buf.shape != a.shape or buf.dtype != a.dtype:
+                    raise ValueError(f"{self.name}: input {tuple(a.shape)} "
+                                     f"{a.dtype}, captured for "
+                                     f"{tuple(buf.shape)} {buf.dtype}")
+                buf.copy_(a)
+            try:
+                with span("graph.launch"):
+                    self.graph.replay()
+            except Exception as exc:
+                raise RuntimeError(f"replay of the CUDA graph of "
+                                   f"{self.name} failed: {exc}") from exc
+            _advance(self._delta, self.meshes)
+            return _map(torch.clone, self._outputs)
 
     def counted(self) -> dict:
         """{kernel: launches} that each replay adds to the counters."""
@@ -235,23 +242,23 @@ class Program:
         return out
 
     def _first_call(self, args):
-        t0 = time.perf_counter()
-        inputs = [a.clone() for a in args]
-        out = self._warm_up(inputs)
-        before = read_counters(self.meshes)
-        graph = GRAPH(self.pool, self.device)
-        try:
-            static = graph.capture(self.fn, inputs)
-        except Exception as exc:
-            raise RuntimeError(f"CUDA graph capture of {self.name} failed: "
-                               f"{exc}") from exc
-        finally:
-            after = read_counters(self.meshes)
-            write_counters(before, self.meshes)
+        with Stopwatch("graph.capture") as watch:
+            inputs = [a.clone() for a in args]
+            out = self._warm_up(inputs)
+            before = read_counters(self.meshes)
+            graph = GRAPH(self.pool, self.device)
+            try:
+                static = graph.capture(self.fn, inputs)
+            except Exception as exc:
+                raise RuntimeError(f"CUDA graph capture of {self.name} "
+                                   f"failed: {exc}") from exc
+            finally:
+                after = read_counters(self.meshes)
+                write_counters(before, self.meshes)
         self._delta = _delta(after, before)
         self._inputs, self._outputs = inputs, static
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s = watch.seconds
         return out
 
 

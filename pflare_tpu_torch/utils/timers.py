@@ -7,12 +7,23 @@ with the number of timed regions of each in ``_COUNTS``.  A same-pattern
 re-setup by stored plans (air/host_resetup.py) splits its levels'
 time into resetup_gather, resetup_coeffs, resetup_inverse and
 resetup_products.
+
+Spans: while ``collect()`` is open, every ``timer`` and every ``span``
+of the thread that opened it appends one record ``(name, tag, start_ns,
+end_ns, parent, request)`` to the list it yields, on ``time.time_ns``'s
+clock, the one ``torch.profiler`` maps its event times to, so a span
+lines up with the device operations of a trace.  ``parent`` is the index of the
+enclosing open span (-1 for none) and ``request`` the index of the
+outermost one (a ``pcair.solve`` or ``pcair.setup_device``), shared by
+the spans of one request; ``summary`` sums them by name.  With no
+collector open a ``span`` reads no clock and records nothing.
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
@@ -41,14 +52,115 @@ LABELS = {
 }
 
 
+_SPANS: list | None = None   # the open collector's records
+_OPEN: list = []              # the indices of its open spans, innermost last
+_THREAD = None                # the thread that opened it
+
+
 @contextmanager
-def timer(name: str):
-    t0 = time.perf_counter()
+def collect():
+    """Record every span while open: yields the list of records (see the
+    module docstring), which grows as spans open and close.  Spans of
+    other threads are not recorded.  Collectors do not nest."""
+    global _SPANS, _THREAD
+    if _SPANS is not None:
+        raise RuntimeError("a span collector is already open")
+    spans = []
+    _SPANS, _THREAD = spans, threading.get_ident()
     try:
-        yield
+        yield spans
     finally:
-        _TIMERS[name] = _TIMERS.get(name, 0.0) + time.perf_counter() - t0
-        _COUNTS[name] = _COUNTS.get(name, 0) + 1
+        _SPANS, _THREAD = None, None
+        _OPEN.clear()
+
+
+def _open(name, tag, t0):
+    """Append an open record; (its list, its index), or None when no
+    collector of this thread is open."""
+    spans = _SPANS
+    if spans is None or threading.get_ident() != _THREAD:
+        return None
+    i = len(spans)
+    parent = _OPEN[-1] if _OPEN else -1
+    spans.append((name, tag, t0, None, parent,
+                  spans[parent][5] if parent >= 0 else i))
+    _OPEN.append(i)
+    return spans, i
+
+
+def _close(at, t1):
+    spans, i = at
+    name, tag, t0, _, parent, request = spans[i]
+    spans[i] = (name, tag, t0, t1, parent, request)
+    if i in _OPEN:      # children left open by an exception close with it
+        del _OPEN[_OPEN.index(i):]
+
+
+class Stopwatch:
+    """A span that always reads the clock: ``seconds`` once it closes
+    (for callers that keep the time), recorded when collecting."""
+
+    __slots__ = ("name", "tag", "start_ns", "seconds", "_at")
+
+    def __init__(self, name: str, tag=None):
+        self.name, self.tag = name, tag
+        self.seconds = None
+
+    def __enter__(self):
+        self.start_ns = time.time_ns()
+        self._at = _open(self.name, self.tag, self.start_ns)
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        self.seconds = (t1 - self.start_ns) / 1e9
+        if self._at is not None:
+            _close(self._at, t1)
+        return False
+
+
+_NO_SPAN = nullcontext()   # what ``span`` gives with no collector open
+
+
+def span(name: str, tag=None):
+    """A context that records the span ``name`` (with ``tag``) while a
+    collector is open; otherwise a shared no-op, which reads no clock."""
+    if _SPANS is None:
+        return _NO_SPAN
+    return Stopwatch(name, tag)
+
+
+class timer(Stopwatch):
+    """The reference's cumulative timer ``name``: adds its seconds to
+    ``get_timers()`` and one to ``_COUNTS``, and is a span when
+    collecting."""
+
+    __slots__ = ()
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        _TIMERS[self.name] = _TIMERS.get(self.name, 0.0) + self.seconds
+        _COUNTS[self.name] = _COUNTS.get(self.name, 0) + 1
+        return False
+
+
+def summary(spans) -> dict:
+    """{name: [count, seconds, self seconds]} of the closed ``spans``
+    (records of ``collect``): a span's self time is its duration less the
+    durations of its child spans."""
+    out = {}
+    child = [0] * len(spans)
+    for _, _, t0, t1, parent, _ in spans:
+        if t1 is not None and parent >= 0:
+            child[parent] += t1 - t0
+    for i, (name, _, t0, t1, _, _) in enumerate(spans):
+        if t1 is None:
+            continue
+        entry = out.setdefault(name, [0, 0.0, 0.0])
+        entry[0] += 1
+        entry[1] += (t1 - t0) / 1e9
+        entry[2] += (t1 - t0 - child[i]) / 1e9
+    return out
 
 
 def timer_time(name: str) -> float:

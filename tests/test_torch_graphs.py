@@ -26,6 +26,7 @@ from pflare_tpu_torch.solvers import jitted, krylov
 from pflare_tpu_torch.sparse import dia as tdia
 from pflare_tpu_torch.sparse import ell as tell
 from pflare_tpu_torch.utils import graphs
+from pflare_tpu_torch.utils import timers as ttimers
 from torch_reference import host_kernels  # noqa: F401
 
 torch.set_num_threads(1)
@@ -281,6 +282,56 @@ def test_graphs_equal_eager(recorded):
     # apply (1), solve_device (4), the right GMRES's op, resid and
     # precond (3), the left preconditioner of FGMRES and Richardson (1)
     assert recorded.captures == len(pc._programs) == 9
+
+
+def test_solve_spans_on_the_graph_path(recorded):
+    """Under ``timers.collect()`` each graphed right-GMRES solve is one
+    ``pcair.solve`` root, a request of its own; ``graph.launch`` spans
+    count the replays, ``gmres.read`` spans the host reads and
+    ``graph.capture`` spans the captures, each with its program's
+    ``capture_s``; every span lies inside its parent, and the self times
+    sum to the roots' durations.  The solve adds nothing to the cumulative
+    timers, and nothing is recorded outside the collector."""
+    A = tpf.adv_diff_2d(24)
+    pc = tpf.PCAIR(_opts(), **F64).setup(A)
+    b = _rhs(A.shape[0], 1)
+    timed, counts = ttimers.get_timers(), dict(ttimers._COUNTS)
+    reads = jitted.HOST_READS
+    with ttimers.collect() as spans:
+        for _ in range(3):
+            assert pc.solve(b, rtol=1e-10, side="right").converged
+    assert ttimers.get_timers() == timed and ttimers._COUNTS == counts
+    assert recorded.captures == len(pc._programs) == 3
+
+    def named(name):
+        return [s for s in spans if s[0] == name]
+
+    roots = [i for i, s in enumerate(spans) if s[4] == -1]
+    assert [spans[i][0] for i in roots] == ["pcair.solve"] * 3
+    assert [spans[i][5] for i in roots] == roots
+    for name, tag, t0, t1, parent, request in spans:
+        assert t1 is not None and t0 <= t1
+        if parent >= 0:
+            _, _, p0, p1, _, preq = spans[parent]
+            assert p0 <= t0 and t1 <= p1 and request == preq
+    assert len(named("graph.launch")) == recorded.replays > 0
+    assert len(named("gmres.read")) == jitted.HOST_READS - reads > 0
+    capture = {spans[s[4]][1]: (s[3] - s[2]) / 1e9
+               for s in named("graph.capture")}
+    assert capture == {prog.name: prog.capture_s
+                       for prog in dict(pc._programs.items()).values()}
+    assert all(spans[s[4]][0] == "program"
+               for s in named("graph.launch") + named("graph.capture"))
+    assert {s[0] for s in spans} == {
+        "pcair.solve", "program", "graph.launch", "graph.capture",
+        "gmres.start", "gmres.orthogonalise", "gmres.read",
+        "gmres.rotate", "gmres.update"}
+    table = ttimers.summary(spans)
+    assert table["pcair.solve"][0] == 3
+    assert sum(v[2] for v in table.values()) == pytest.approx(
+        table["pcair.solve"][1], rel=1e-9)
+    pc.solve(b, rtol=1e-10, side="right")
+    assert len(spans) == sum(v[0] for v in table.values())
 
 
 def test_graph_dropped_on_every_change(recorded):

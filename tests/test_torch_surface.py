@@ -189,3 +189,31 @@ def test_timer_time_and_counts_after_setup(host_kernels):
     assert ttimers._COUNTS == jtimers._COUNTS
     ttimers.reset_timers()
     assert ttimers.get_timers() == {} and ttimers._COUNTS == {}
+
+
+def test_setup_device_spans_by_level():
+    """Under ``timers.collect()`` a CPU ``setup_device`` is one
+    ``pcair.setup_device`` root holding the reorder and ``air_setup``, with
+    one ``setup.level`` span a level, tagged with its index, and the phase
+    timers' spans under them; nothing is packed on the CPU, so there is
+    no ``dell.pack`` span.  The phase timers still count as before."""
+    A = tpf.adv_diff_2d(32)
+    pc = tpf.PCAIR(tpf.AIROptions(), dtype=torch.float64, device="cpu")
+    ttimers.reset_timers()
+    with ttimers.collect() as spans:
+        pc.setup_device(A)
+    names = [s[0] for s in spans]
+    assert [s[0] for s in spans if s[4] == -1] == ["pcair.setup_device"]
+    assert {s[5] for s in spans} == {0}
+    setup = names.index("air_setup")
+    assert spans[names.index("pcair.reorder")][4] == spans[setup][4] == 0
+    levels = [i for i, name in enumerate(names) if name == "setup.level"]
+    assert [spans[i][1] for i in levels] == list(range(pc.n_levels))
+    assert all(spans[i][4] == setup for i in levels)
+    phases = [s for s in spans if s[0] in ttimers.LABELS
+              and s[0] != "air_setup"]
+    assert phases and all(spans[s[4]][0] == "setup.level" for s in phases)
+    assert "dell.pack" not in names
+    assert {name: v[0] for name, v in ttimers.summary(spans).items()
+            if name in ttimers.LABELS} == ttimers._COUNTS
+    ttimers.reset_timers()
