@@ -481,6 +481,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import pflare_tpu_torch as tpf
     from pflare_tpu_torch import cuda, native
+    from pflare_tpu_torch.air.fullspace import coarse_maps
+    from pflare_tpu_torch.air.smooth import _place_coarse
     from pflare_tpu_torch.sparse import DELL, DIA, ELL, TELL, BandedSpMV
     from pflare_tpu_torch.sparse import banded as tbanded
     from pflare_tpu_torch.sparse import dia as tdia
@@ -614,7 +616,7 @@ def main() -> int:
         return BandedSpMV(data, M.lcols.clone(), M.n, M.n_cols, M.w, M.W,
                           M.col_base)
 
-    def measure(label, op):
+    def measure(label, op, kind="plain", coarse=None):
         """Kernel, plain version and the cuSPARSE CSR product ``A @ x`` of
         one operator, each by ``graph_ms``, in the order plain, kernel,
         kernel, plain, library, library (the better of each pair).  The R
@@ -630,13 +632,28 @@ def main() -> int:
         DELL) plain version is ``sell_spmv_plain`` over its packed
         copy.  Stored zeros (the masked A_ff and A_fc of a device-built
         form keep A's slots) are no nonzeros of the product: the bound and
-        cuSPARSE's CSR leave them out."""
+        cuSPARSE's CSR leave them out.
+
+        ``kind`` other than "plain", for a gather operator: the launch
+        the V-cycle makes, as ``sparse/ell.py::Fused`` asks it.  An
+        epilogue (``ell.EPILOGUES``) reads vectors u (and m, "masked") of
+        n rows, each counted once more in the bound; "coarse_out" (R)
+        and "coarse_in" (P) run through the copy ``fullspace.coarse_maps``
+        makes of each operator copy for the list ``coarse``, and write
+        its nc rows or read x of nc entries (the bound's n and x follow).
+        Such a row also times, interleaved with the kernel, what the
+        V-cycle launched without it (the plain launch, then PyTorch's op,
+        gather or scatter) under "separate_ms"; the library row is the
+        operator's cuSPARSE product alone."""
         host = op.to_scipy()
         host.eliminate_zeros()
         n, n_cols = op.shape
         T = op.data.element_size()
         banded = isinstance(op, BandedSpMV)
         gather = isinstance(op, (TELL, ELL, DELL))
+        fused = kind != "plain"
+        require(gather or not fused, f"{label}: {kind} on a "
+                f"{type(op).__name__}")
         op_bytes = (op.packed.nbytes if gather else
                     op.data.numel() * (T + (4 if banded else 0)))
         copies = min(R, max(1, math.ceil(2 * L2_BYTES / op_bytes)))
@@ -646,13 +663,57 @@ def main() -> int:
             torch.as_tensor(host.indices, dtype=torch.int32),
             torch.as_tensor(host.data, dtype=op.dtype),
             size=host.shape).to(dev) for _ in range(copies)]
-        x = torch.as_tensor(rng.standard_normal(n_cols), dtype=op.dtype,
-                            device=dev)
-        kernel = [lambda M=M: M.matvec(x) for M in mats]
-        plain = [lambda M=M: plain_matvec(M, x) for M in mats]
-        library = [lambda C=C: C @ x for C in csrs]
-        p1, k1, k2, p2, l1, l2 = (graph_ms(torch, f) for f in (
-            plain, kernel, kernel, plain, library, library))
+
+        def vec(k):
+            return torch.as_tensor(rng.standard_normal(k), dtype=op.dtype,
+                                   device=dev)
+
+        def remapped(M):
+            """M's packed copy as the V-cycle's coarse map of it."""
+            level = {"coarse": coarse, "mask_f": torch.empty(n, device=dev),
+                     "R": M, "P": M}
+            mp = coarse_maps([level])[0][kind == "coarse_in"]
+            require(mp is not None, f"{label}: no {kind} map")
+            return mp
+
+        sells = [remapped(M) for M in mats] if kind in sell.MAPS else []
+        x = vec(coarse.shape[0] if kind == "coarse_in" else n_cols)
+        x_op = (_place_coarse(x, coarse, n_cols) if kind == "coarse_in"
+                else x)
+        if fused and kind not in sell.MAPS:
+            u, m = vec(n), (vec(n) > 0).to(op.dtype)
+        after = {"residual": lambda y: u - y,
+                 "masked": lambda y: m * u - y,
+                 "correction": lambda y: u + y,
+                 "coarse_out": lambda y: y.index_select(0, coarse)}
+
+        if kind in sell.MAPS:
+            kernel = [lambda M=M, S=S: M.matvec(sell.Fused(kind, x,
+                                                           packed=S))
+                      for M, S in zip(mats, sells)]
+            plain = [lambda S=S: sell.sell_spmv_plain(S, x) for S in sells]
+        elif fused:
+            kernel = [lambda M=M: M.matvec(sell.Fused(kind, x, u=u, m=m))
+                      for M in mats]
+            plain = [lambda M=M: sell.sell_spmv_plain(M.packed, x, kind, u,
+                                                      m) for M in mats]
+        else:
+            kernel = [lambda M=M: M.matvec(x) for M in mats]
+            plain = [lambda M=M: plain_matvec(M, x) for M in mats]
+        if kind == "coarse_in":
+            separate = [lambda M=M: M.matvec(_place_coarse(x, coarse,
+                                                           n_cols))
+                        for M in mats]
+        elif fused:
+            separate = [lambda M=M: after[kind](M.matvec(x)) for M in mats]
+        library = [lambda C=C: C @ x_op for C in csrs]
+        if fused:
+            p1, k1, s1, k2, s2, p2, l1, l2 = (graph_ms(torch, f) for f in (
+                plain, kernel, separate, kernel, separate, plain, library,
+                library))
+        else:
+            p1, k1, k2, p2, l1, l2 = (graph_ms(torch, f) for f in (
+                plain, kernel, kernel, plain, library, library))
         if banded:
             # what make_op would build without the banded container: the
             # plain PyTorch TELL gather (one gather, multiply, add a slot)
@@ -664,7 +725,10 @@ def main() -> int:
         index = 4 if banded or gather else 0
         x_read = int(np.count_nonzero(np.bincount(host.indices,
                                                   minlength=n_cols)))
-        t_bytes = ((host.nnz * (T + index) + (n + x_read) * T)
+        rows = coarse.shape[0] if kind == "coarse_out" else n
+        vectors = {"residual": n, "masked": 2 * n, "correction": n}.get(
+            kind, 0)
+        t_bytes = ((host.nnz * (T + index) + (rows + x_read + vectors) * T)
                    / HBM_BYTES_S * 1e3)
         t_ops = 2 * host.nnz / FP32_FLOPS * 1e3
         if gather:
@@ -679,7 +743,9 @@ def main() -> int:
             "shape": f"{label}: {type(op).__name__} {n} x {n_cols}, "
                      f"K={K}"
                      + (f", W={op.W}" if banded else "")
-                     + f", {host.nnz} nonzeros in {stored}",
+                     + f", {host.nnz} nonzeros in {stored}"
+                     + (f", {kind} launch" if fused else ""),
+            "kind": kind,
             "ms": min(k1, k2), "plain_ms": min(p1, p2),
             "library_ms": min(l1, l2),
             "bound_ms": max(t_bytes, t_ops),
@@ -687,6 +753,8 @@ def main() -> int:
             "host_launch_ms": eager_ms(torch, kernel[0]),
             "operator_copies": copies,
         }
+        if fused:
+            row["separate_ms"] = min(s1, s2)
         if banded:
             row["tell_plain_ms"] = tell_ms
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -697,7 +765,9 @@ def main() -> int:
               f"{row['share_of_bound']:.1%} of it); eager back-to-back kernel "
               f"calls (host launch rate) {row['host_launch_ms']:.6f} ms; "
               f"{copies} operator copies"
-              + (f"; TELL plain gather {tell_ms:.6f} ms" if banded else ""))
+              + (f"; TELL plain gather {tell_ms:.6f} ms" if banded else "")
+              + (f"; separate launches {row['separate_ms']:.6f} ms (pair "
+                 f"{s1:.6f}/{s2:.6f})" if fused else ""))
         return row
 
     def level0_dia(dhier, prefix):
@@ -1061,7 +1131,8 @@ def main() -> int:
         "solve_us_per_call_2048": us_2048["sell"],
         "launch_floor_ms": floor_ms,
         "one_program": one_program,
-        "dell": {label: {k: v for k, v in run.items() if k != "timing"}
+        "dell": {label: {k: v for k, v in run.items()
+                         if k not in ("timing", "fused_timing")}
                  for label, run in dell_runs.items()},
         "dell_timings": timed["dell"],
         "timings": timed["sell"]})
@@ -2064,13 +2135,23 @@ def dell_checks(np, torch, pcx, bx, label, measure, err):
     kernel once and equals
     ``sell_spmv_plain`` over the packed copy bit for bit, within 1e-6
     (f32) or 1e-14 (f64) of max |y| of the DELL's plain gather and row
-    sum; ``measure`` on the widest (most stored slots); a counted
-    ``solve_device`` (10 Richardson its, replayed) and ``gather_routes``;
+    sum; each DELL's product with each epilogue (``ell.Fused``) equal to
+    ``sell_spmv_plain`` with it bit for bit; each level's R and P
+    through their coarse maps (``DeviceHierarchy.coarse_maps``, one for
+    every DELL R and P) equal to the plain launch followed by
+    ``index_select`` or preceded by ``_place_coarse`` bit for bit;
+    ``measure`` on the widest DELL (most stored slots) plain and with
+    each epilogue, and on level 0's R and P through their maps; a counted
+    ``solve_device`` (10 Richardson its, replayed), with the share of its
+    gather launches that carried an epilogue or a coarse map
+    (``ell.EPILOGUE_LAUNCHES``), and ``gather_routes``;
     the solve through its graph equal to the eager one bit for bit, no
     DELL packed in either, and the graphs' kernel nodes equal to the
     counters (``graph_launches``).  Returns the numbers, with the timing
-    row under "timing"."""
+    rows under "timing" (the widest DELL's plain product) and
+    "fused_timing"."""
     from pflare_tpu_torch.air.device_setup import solve_form_dells
+    from pflare_tpu_torch.air.smooth import _place_coarse
     from pflare_tpu_torch.sparse import DELL
     from pflare_tpu_torch.sparse import dell as tdell
     from pflare_tpu_torch.sparse import ell as sell
@@ -2108,6 +2189,45 @@ def dell_checks(np, torch, pcx, bx, label, measure, err):
                 "from the DELL's gather and row sum")
         worst[dtype] = max(worst[dtype], gap)
         err["sell"] = max(err["sell"], float((y - ref).abs().max()))
+    for D in dells:
+        n = D.shape[0]
+        x, u = (torch.as_tensor(rng.standard_normal(k), dtype=D.dtype,
+                                device=dev) for k in (D.n_cols, n))
+        m = (torch.as_tensor(rng.standard_normal(n), device=dev) > 0).to(
+            D.dtype)
+        for kind in ("residual", "masked", "correction"):
+            before = dict(sell.EPILOGUE_LAUNCHES)
+            y = D.matvec(sell.Fused(kind, x, u=u, m=m))
+            ref = sell.sell_spmv_plain(D.packed, x, kind, u, m)
+            require(torch.equal(y, ref), f"{label} {D.dtype}: the {kind} "
+                    f"epilogue differs from its plain version on a DELL of "
+                    f"{n} rows by {float((y - ref).abs().max()):.3e}")
+            require(sell.EPILOGUE_LAUNCHES[kind] == before.get(kind, 0) + 1,
+                    f"{label}: a {kind} launch was not counted once")
+    dh = pcx.upload()
+    require(dh.coarse_maps is not None, f"{label}: no coarse maps")
+    mapped = {"R": 0, "P": 0}
+    for i, (lev, pair) in enumerate(zip(dh.levels, dh.coarse_maps)):
+        coarse, n = lev["coarse"], lev["mask_f"].shape[0]
+        for side, M, mp in (("R", lev["R"], pair[0]), ("P", lev["P"],
+                                                       pair[1])):
+            require(mp is not None or not isinstance(M, DELL),
+                    f"{label}: level {i} {side}, a DELL, has no coarse map")
+            if mp is None:
+                continue
+            v = torch.as_tensor(rng.standard_normal(mp.shape[1]),
+                                dtype=M.dtype, device=dev)
+            if side == "R":
+                y = M.matvec(sell.Fused("coarse_out", v, packed=mp))
+                ref = M.matvec(v).index_select(0, coarse)
+            else:
+                y = M.matvec(sell.Fused("coarse_in", v, packed=mp))
+                ref = M.matvec(_place_coarse(v, coarse, n))
+            require(torch.equal(y, ref), f"{label}: level {i} {side} through "
+                    f"its coarse map differs from the plain launch with the "
+                    f"separate {'gather' if side == 'R' else 'scatter'} by "
+                    f"{float((y - ref).abs().max()):.3e}")
+            mapped[side] += 1
     nnz = sum(int((M.cols < tdell.PADCOL).sum()) for M in dells)
     # the masked A_ff and A_fc keep all of A's slots, zeroed outside
     # their blocks, and pack their nonzeros alone (``nonzero_slots``)
@@ -2124,14 +2244,32 @@ def dell_checks(np, torch, pcx, bx, label, measure, err):
           f"them nonzero, in {slots} slots; packed in {packed}, {zeros} "
           f"packed live slots zero), within "
           f"{worst[torch.float32]:.3e} / {worst[torch.float64]:.3e} of max "
-          "|y| of their gather and row sum", flush=True)
+          "|y| of their gather and row sum; each epilogue equals its "
+          f"plain version bit for bit; {mapped['R']} R and {mapped['P']} P "
+          "through their coarse maps equal the plain launch with the "
+          "separate gather or scatter bit for bit", flush=True)
     widest = max(dells, key=lambda M: M.data.numel())
-    names = {id(op): lab for lab, op in _device_ops(pcx.upload())}
-    timing = measure(f"{label} widest DELL ({names.get(id(widest), '?')})",
-                     widest)
+    names = {id(op): lab for lab, op in _device_ops(dh)}
+    what = f"{label} widest DELL ({names.get(id(widest), '?')})"
+    timing = measure(what, widest)
+    fused_timing = [measure(what, widest, kind)
+                    for kind in ("residual", "masked", "correction")]
+    lev0, (R_map, P_map) = dh.levels[0], dh.coarse_maps[0]
+    for kind, M, mp in (("coarse_out", lev0["R"], R_map),
+                        ("coarse_in", lev0["P"], P_map)):
+        if mp is not None:
+            fused_timing.append(measure(
+                f"{label} level 0 {'R' if kind == 'coarse_out' else 'P'}",
+                M, kind, lev0["coarse"]))
     sell.KERNEL_LAUNCHES = 0
+    sell.EPILOGUE_LAUNCHES.clear()
     device_sync_read(*pcx.solve_device(bx, max_it=10, ksp="richardson"))
     launched = sell.KERNEL_LAUNCHES
+    fused = dict(sell.EPILOGUE_LAUNCHES)
+    fused_pct = sum(fused.values()) / max(launched, 1) * 100
+    print(f"# {label}: {launched / 10} gather launches an iteration of "
+          f"solve_device, {fused_pct:.1f}% of them with an epilogue or a "
+          f"coarse map, by kind {fused}", flush=True)
     routes = gather_routes(torch, pcx, bx, sell, launched, label)
     packs = tdell.PACKS
     pcx.jit = True
@@ -2150,8 +2288,10 @@ def dell_checks(np, torch, pcx, bx, label, measure, err):
     return {"dells": len(dells), "live_slots": nnz, "nonzeros": nonzero,
             "packed_zero_slots": zeros, "slots": slots, "packed": packed,
             "launches_per_iteration": launched / 10,
-            "routes": routes, "graph_kernel_nodes": nodes,
-            "timing": timing}
+            "fused_launches": fused, "fused_pct": fused_pct,
+            "coarse_maps": mapped, "routes": routes,
+            "graph_kernel_nodes": nodes, "timing": timing,
+            "fused_timing": fused_timing}
 
 
 def install_replay(np, torch, pc, plan, A_old, b, norms_old):
@@ -2475,7 +2615,8 @@ def phase13(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512,
                                             "iterations": 10}
     dell = {"2048^2 device-built": dell_checks(
         np, torch, pc, b2k, "2048^2 device-built", measure, err)}
-    timed["dell"].append(dell["2048^2 device-built"]["timing"])
+    timed["dell"] += [dell["2048^2 device-built"]["timing"],
+                      *dell["2048^2 device-built"]["fused_timing"]]
     dell["2048^2 device-built"]["profiled"] = profile_solve(
         pc, b2k, "2048^2 device-built")
     dh = pc.upload()
@@ -2792,7 +2933,7 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
         profile_solve(pcd, b, f"{label} device-built")
         run = dell_checks(np, torch, pcd, b, f"{label} device-built",
                           measure, err)
-        timed["dell"].append(run["timing"])
+        timed["dell"] += [run["timing"], *run["fused_timing"]]
         dell_runs[f"{label} device-built"] = run
         del pcd
         return A, b, top, launches, pc

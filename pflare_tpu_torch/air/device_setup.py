@@ -49,6 +49,7 @@ from ..sparse.dell import (DELL, OFFBIG, PADCOL, _pad_cols, apply_restrict_plan,
 from ..sparse.dia import DIA
 from ..sparse.dtypes import numpy_dtype
 from ..utils.timers import current_syncs, span, timer
+from .fullspace import coarse_maps
 from .hierarchy import DeviceHierarchy
 
 
@@ -1046,6 +1047,7 @@ def setup_hierarchy_device(A, opts: AIROptions, dtype=torch.float32,
         # before any capture: a CUDA graph of the solve cannot pack
         with span("dell.pack"):
             pack_dells(solve_form_dells(solve_form))
+            solve_form.coarse_maps = coarse_maps(solve_form.levels)
     syncs1 = current_syncs()
     return DeviceSetupHierarchy(
         levels, A, coarse_inv, opts, top_A, solve_form, auto_truncated,

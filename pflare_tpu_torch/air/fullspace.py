@@ -21,11 +21,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import cuda
 from ..inverse.build import Inverse
-from ..sparse import TELL
+from ..sparse import ELL, TELL
 from ..sparse.banded import BandedSpMV
 from ..sparse.dia import DIA
+from ..sparse.dell import DELL
 from ..sparse.dtypes import numpy_dtype
+from ..sparse.ell import Sell
 
 
 def op_kind(M_host: sp.csr_matrix) -> str:
@@ -141,6 +144,65 @@ def build_fullspace_level(lvl, dtype, device) -> dict:
         d["inv_Acc"] = inverse_to_fullspace(lvl.inv_Acc, coarse, n, A_cc_op,
                                             dtype, device)
     return d
+
+
+def _positions(coarse, n: int):
+    """[n] int64: k at position coarse[k], -1 elsewhere."""
+    pos = torch.full((n,), -1, dtype=torch.int64, device=coarse.device)
+    pos[coarse] = torch.arange(coarse.shape[0], device=coarse.device)
+    return pos
+
+
+def coarse_maps(levels) -> list:
+    """For each full-space level, the packed copies through which the
+    V-cycle's R writes, and its P reads, the coarse vector itself
+    (``smooth.vcycle_kaskade``; ``sparse/ell.py::Fused``): (R's, P's),
+    each None where that operator is no gather container (TELL, ELL,
+    DELL) with a packed copy beside the coarse list.  R's copy keeps R's
+    index and values and names each output row by its position in
+    ``coarse``, so it writes R(b)[coarse] (the other rows, dropped by
+    that gather too, write nothing).  P's keeps P's index and values and
+    renumbers each column by its position in ``coarse``, so it reads the
+    coarse vector; where a live column of P is no coarse one (P z then
+    reads more than z[coarse]) P keeps the scatter: checked for all
+    levels with one host read a device.  None for a level of the
+    full-smoothing form (no ``coarse``).  Made where the solve form's
+    packed copies are made, never in a capture."""
+    maps, checks = [], {}
+    for i, lev in enumerate(levels):
+        coarse = lev.get("coarse")
+        if not isinstance(coarse, torch.Tensor):
+            maps.append(None)
+            continue
+        n = lev["mask_f"].shape[0]
+        pos = _positions(coarse, n)
+        R, P = ((M.packed if isinstance(M, (TELL, ELL, DELL)) else None)
+                for M in (lev["R"], lev["P"]))
+        R_map = P_map = None
+        if (R is not None and R.data.device == coarse.device
+                and R.shape[0] == n):
+            at = pos[R.row_of.clamp(min=0).long()]
+            R_map = Sell(R.index, R.data, R.cols,
+                         (coarse.shape[0], R.shape[1]),
+                         row_of=torch.where(R.row_of >= 0, at, -1)
+                         .to(torch.int32))
+        if (P is not None and P.data.device == coarse.device
+                and P.shape[1] == n):
+            at = pos[P.cols.long()]
+            live = P.index.src >= 0
+            P_map = Sell(P.index, P.data,
+                         torch.where(live, at, 0).to(torch.int32),
+                         (P.shape[0], coarse.shape[0]))
+            checks.setdefault(coarse.device, []).append(
+                (i, (live & (at < 0)).sum()))
+        maps.append((R_map, P_map))
+    for dev, found in checks.items():
+        with cuda.guard(dev):
+            outside = torch.stack([c for _, c in found]).tolist()
+        for (i, _), bad in zip(found, outside):
+            if bad:
+                maps[i] = (maps[i][0], None)
+    return maps
 
 
 def build_full_smoothing_level(lvl, dtype, device) -> dict:

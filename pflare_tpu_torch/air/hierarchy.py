@@ -30,7 +30,8 @@ from ..sparse.ops import (one_point_strongest, remove_from_sparse_match,
                           remove_small_from_sparse)
 from ..utils.timers import timer
 from .constrain import constrain_grid_transfer, smooth_near_nullspace
-from .fullspace import build_fullspace_level, build_full_smoothing_level, make_op
+from .fullspace import (build_fullspace_level, build_full_smoothing_level,
+                        coarse_maps, make_op)
 from .operators import (
     _matmat,
     ap_product,
@@ -79,12 +80,16 @@ class LevelData:
 class DeviceHierarchy:
     """What the solve runs: the level dicts (full-space form, or the
     full-smoothing form), the coarse inverse and the finest operator (None
-    when built without one)."""
+    when built without one); ``coarse_maps``: each full-space level's R
+    and P packed to write and read the coarse vector
+    (``fullspace.coarse_maps``), None where the V-cycle gathers and
+    scatters around them."""
 
     levels: list
     coarse_inv: Inverse
     top: object = None
     full_smoothing: bool = False
+    coarse_maps: list | None = None
 
     def to_scipy(self) -> dict:
         """{name: host csr} of every operator: each level's, its
@@ -212,14 +217,16 @@ class Hierarchy:
         """Upload: the level operators, the coarse inverse and the
         finest-level operator (built with ``make_op``, so a DIA top level
         runs its matvecs through the DIA kernel), as ``dtype`` on
-        ``device``."""
+        ``device``; on a card with each full-space level's gather R and P
+        packed to write and read the coarse vector (``coarse_maps``)."""
         full = self.options.full_smoothing_up_and_down
         build = build_full_smoothing_level if full else build_fullspace_level
         top = self.levels[0].A if self.levels else self.coarse_matrix
-        return DeviceHierarchy(
-            [build(lvl, dtype, device) for lvl in self.levels],
-            self.coarse_inv.to(device, dtype),
-            make_op(top, dtype).to(device), full)
+        levels = [build(lvl, dtype, device) for lvl in self.levels]
+        maps = (coarse_maps(levels)
+                if torch.device(device).type == "cuda" and not full else None)
+        return DeviceHierarchy(levels, self.coarse_inv.to(device, dtype),
+                               make_op(top, dtype).to(device), full, maps)
 
 
 def _is_diagonal_only(A: sp.csr_matrix) -> bool:

@@ -330,7 +330,7 @@ class PCAIR:
             return lambda r: vcycle_full(dh.levels, dh.coarse_inv, r)
         smooth_order = self.options.smooth_arg
         return lambda r: vcycle_kaskade(dh.levels, dh.coarse_inv, r,
-                                        smooth_order)
+                                        smooth_order, dh.coarse_maps)
 
     def _graphed(self) -> bool:
         return self.jit and graphs.enabled(self.device)

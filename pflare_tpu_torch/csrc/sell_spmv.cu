@@ -46,6 +46,23 @@
 //   (offsets 16, 8, ... down to 32 / L), and the slice's first 32 / L
 //   threads write y[row_of[r]].
 //
+// An epilogue (a template parameter; one launch either way) does the
+// vector work that the V-cycle (air/smooth.py) puts around a product, on
+// the row's sum acc as it is written:
+//
+//   plain        y[row] = acc
+//   residual     y[row] = u[row] - acc              t - A_ff x
+//   masked       y[row] = m[row] * u[row] - acc     mask_f * b - A_fc x
+//   correction   y[row] = u[row] + acc              x + inv(A_ff) r
+//
+// each multiply and add rounded on its own, in PyTorch's order, so a
+// fused launch gives the bits of the product followed by PyTorch's
+// elementwise op, and reads u and m where that op would have read them
+// again.  The coarse maps of R and P need no code here: R's mapped copy
+// names output rows by their position in the coarse list (row_of), and
+// P's names columns by theirs (cols), so R writes, and P reads, the
+// coarse vector itself (air/fullspace.py::coarse_maps).
+//
 // No shared memory, so an SM holds its full 2,048 threads to hide the
 // gathers.  The order of every sum is fixed, so every call gives the same
 // bits: a CUDA graph's replay equals the eager run, and the plain version
@@ -71,13 +88,23 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
 
-template <typename T, int kLanes>
+// sparse/ell.py::EPILOGUES numbers them alike
+enum Epilogue { kPlain = 0, kResidual = 1, kMasked = 2, kCorrection = 3 };
+
+template <typename T, int kLanes, int kEpilogue>
 __global__ void __launch_bounds__(kThreads)
 sell_spmv_kernel(const T* __restrict__ data, const int* __restrict__ cols,
                  const long long* __restrict__ slice_ptr,
                  const int* __restrict__ row_of, const T* __restrict__ x,
-                 T* __restrict__ y, long long n_slices) {
+                 T* __restrict__ y, const T* __restrict__ u,
+                 const T* __restrict__ m, long long n_slices) {
   constexpr int kRows = kWarp / kLanes;
   const long long slice =
       ((long long)blockIdx.x * kThreads + threadIdx.x) / kWarp;
@@ -93,46 +120,75 @@ sell_spmv_kernel(const T* __restrict__ data, const int* __restrict__ cols,
     acc = add_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
   if (lane < kRows) {
     const int row = __ldg(row_of + slice * kRows + lane);
-    if (row >= 0) y[row] = acc;
+    if (row >= 0) {
+      if constexpr (kEpilogue == kResidual)
+        acc = sub_rn(__ldg(u + row), acc);
+      else if constexpr (kEpilogue == kMasked)
+        acc = sub_rn(mul_rn(__ldg(m + row), __ldg(u + row)), acc);
+      else if constexpr (kEpilogue == kCorrection)
+        acc = add_rn(__ldg(u + row), acc);
+      y[row] = acc;
+    }
   }
+}
+
+struct Args {
+  const void* data;
+  const void* cols;
+  const void* slice_ptr;
+  const void* row_of;
+  const void* x;
+  void* y;
+  const void* u;
+  const void* m;
+  long long n_slices;
+};
+
+template <typename T, int kLanes, int kEpilogue>
+void go(unsigned blocks, cudaStream_t stream, const Args& a) {
+  sell_spmv_kernel<T, kLanes, kEpilogue><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.data), static_cast<const int*>(a.cols),
+      static_cast<const long long*>(a.slice_ptr),
+      static_cast<const int*>(a.row_of), static_cast<const T*>(a.x),
+      static_cast<T*>(a.y), static_cast<const T*>(a.u),
+      static_cast<const T*>(a.m), a.n_slices);
 }
 
 template <typename T, int kLanes>
-void go(unsigned blocks, cudaStream_t stream, const void* data,
-        const void* cols, const void* slice_ptr, const void* row_of,
-        const void* x, void* y, long long n_slices) {
-  sell_spmv_kernel<T, kLanes><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(data), static_cast<const int*>(cols),
-      static_cast<const long long*>(slice_ptr),
-      static_cast<const int*>(row_of), static_cast<const T*>(x),
-      static_cast<T*>(y), n_slices);
+bool go_epilogue(int epilogue, unsigned blocks, cudaStream_t stream,
+                 const Args& a) {
+  switch (epilogue) {
+    case kPlain: go<T, kLanes, kPlain>(blocks, stream, a); return true;
+    case kResidual: go<T, kLanes, kResidual>(blocks, stream, a); return true;
+    case kMasked: go<T, kLanes, kMasked>(blocks, stream, a); return true;
+    case kCorrection:
+      go<T, kLanes, kCorrection>(blocks, stream, a);
+      return true;
+    default: return false;
+  }
 }
 
 template <typename T>
-int launch(const void* data, const void* cols, const void* slice_ptr,
-           const void* row_of, const void* x, void* y, long long n_slices,
-           int lanes, void* stream) {
-  if (n_slices < 0) return (int)cudaErrorInvalidValue;
-  if (n_slices == 0) return (int)cudaSuccess;
-  const long long blocks = (n_slices * kWarp + kThreads - 1) / kThreads;
+int launch(const Args& a, int lanes, int epilogue, void* stream) {
+  if (a.n_slices < 0) return (int)cudaErrorInvalidValue;
+  if (epilogue != kPlain && a.u == nullptr) return (int)cudaErrorInvalidValue;
+  if (epilogue == kMasked && a.m == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.n_slices == 0) return (int)cudaSuccess;
+  const long long blocks = (a.n_slices * kWarp + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto b = (unsigned)blocks;
+  bool ok;
   switch (lanes) {
-    case 1: go<T, 1>(b, s, data, cols, slice_ptr, row_of, x, y, n_slices);
-      break;
-    case 2: go<T, 2>(b, s, data, cols, slice_ptr, row_of, x, y, n_slices);
-      break;
-    case 4: go<T, 4>(b, s, data, cols, slice_ptr, row_of, x, y, n_slices);
-      break;
-    case 8: go<T, 8>(b, s, data, cols, slice_ptr, row_of, x, y, n_slices);
-      break;
-    case 16: go<T, 16>(b, s, data, cols, slice_ptr, row_of, x, y, n_slices);
-      break;
-    case 32: go<T, 32>(b, s, data, cols, slice_ptr, row_of, x, y, n_slices);
-      break;
-    default: return (int)cudaErrorInvalidValue;
+    case 1: ok = go_epilogue<T, 1>(epilogue, b, s, a); break;
+    case 2: ok = go_epilogue<T, 2>(epilogue, b, s, a); break;
+    case 4: ok = go_epilogue<T, 4>(epilogue, b, s, a); break;
+    case 8: ok = go_epilogue<T, 8>(epilogue, b, s, a); break;
+    case 16: ok = go_epilogue<T, 16>(epilogue, b, s, a); break;
+    case 32: ok = go_epilogue<T, 32>(epilogue, b, s, a); break;
+    default: ok = false;
   }
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -143,20 +199,24 @@ extern "C" {
 // data: [P] packed values; cols: [P] int32 columns of x; slice_ptr:
 // [n_slices + 1] int64 offsets of the slices in data and cols (multiples
 // of 32); row_of: [n_slices * 32 / lanes] int32 rows of y, -1 for none;
-// x: [n_cols]; y: [n] (every row of y appears once in row_of).  All device
-// pointers, every column inside [0, n_cols).
+// x: [n_cols]; y: [n] (every row of y appears once in row_of); u, m: [n],
+// the epilogue's vectors (null where it reads none; epilogue: 0 plain,
+// 1 residual, 2 masked, 3 correction).  All device pointers, every column
+// inside [0, n_cols).
 int sell_spmv_f32(const void* data, const void* cols, const void* slice_ptr,
-                  const void* row_of, const void* x, void* y,
-                  long long n_slices, int lanes, void* stream) {
-  return launch<float>(data, cols, slice_ptr, row_of, x, y, n_slices, lanes,
-                       stream);
+                  const void* row_of, const void* x, void* y, const void* u,
+                  const void* m, long long n_slices, int lanes, int epilogue,
+                  void* stream) {
+  return launch<float>({data, cols, slice_ptr, row_of, x, y, u, m, n_slices},
+                       lanes, epilogue, stream);
 }
 
 int sell_spmv_f64(const void* data, const void* cols, const void* slice_ptr,
-                  const void* row_of, const void* x, void* y,
-                  long long n_slices, int lanes, void* stream) {
-  return launch<double>(data, cols, slice_ptr, row_of, x, y, n_slices, lanes,
-                        stream);
+                  const void* row_of, const void* x, void* y, const void* u,
+                  const void* m, long long n_slices, int lanes, int epilogue,
+                  void* stream) {
+  return launch<double>({data, cols, slice_ptr, row_of, x, y, u, m, n_slices},
+                        lanes, epilogue, stream);
 }
 
 const char* sell_spmv_error_string(int code) {

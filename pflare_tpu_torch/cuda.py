@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _EXPORTS = {
     "dia_spmv": "pppnnpip",
     "banded_spmv": "ppppnnninnnp",
-    "sell_spmv": "ppppppnip",
+    "sell_spmv": "ppppppppniip",
 }
 KERNELS = tuple(_EXPORTS)
 _CTYPES = {"p": ctypes.c_void_p, "n": ctypes.c_longlong, "i": ctypes.c_int}

@@ -42,7 +42,8 @@ import torch
 
 from .. import cuda
 from .dtypes import numpy_dtype
-from .ell import SORT_WINDOW, pack, sell_indices, sell_spmv_cuda
+from .ell import (SORT_WINDOW, Fused, fused_product, pack, sell_indices,
+                  sell_spmv_cuda)
 
 PADCOL = 2**30
 OFFBIG = 2**29
@@ -116,7 +117,10 @@ class DELL:
 
     def matvec(self, x):
         """y = A @ x: the gather kernel over the packed copy on a CUDA
-        tensor, ``dell_spmv_plain`` on a CPU one."""
+        tensor, ``dell_spmv_plain`` on a CPU one.  A ``Fused`` operand:
+        the product with its vector work (``ell.fused_product``)."""
+        if isinstance(x, Fused):
+            return fused_product(self.packed, x)
         if x.is_cuda:
             return sell_spmv_cuda(self.packed, x.contiguous())
         return dell_spmv_plain(self, x)

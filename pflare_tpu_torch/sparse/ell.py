@@ -21,8 +21,18 @@ copy with one gather; the container's own tensors stay as they are.
 ``TELL.matvec`` and ``ELL.matvec`` launch the hand-written kernel
 ``csrc/sell_spmv.cu`` on a CUDA tensor, and on a CPU tensor run their
 plain versions (``tell_spmv_plain``, the slot loop; ELL's gather and row
-sum).  The device setup's ``DELL`` (``sparse/dell.py``), an ``[n, K]``
-layout with dead slots (0, PADCOL) after the live ones, packs by the same
+sum).
+
+A ``Fused`` operand asks the same launch to do the V-cycle's vector work
+around the product (air/smooth.py): an epilogue on each row's sum
+(``u - A x``, ``m u - A x``, ``u + A x``), or a product through a copy
+of the packed copy with its output rows or input columns renumbered
+(the V-cycle's R writing, and P reading, the coarse vector).  Each such
+launch counts once in ``KERNEL_LAUNCHES`` and once, by kind, in
+``EPILOGUE_LAUNCHES``.
+
+The device setup's ``DELL`` (``sparse/dell.py``), an ``[n, K]`` layout
+with dead slots (0, PADCOL) after the live ones, packs by the same
 index and runs the same kernel.  ``sell_spmv_plain`` walks the packed
 layout in the kernel's order and is what the card holds the kernel to,
 bit for bit.
@@ -48,6 +58,14 @@ KERNEL_LAUNCHES = 0  # launches of csrc/sell_spmv.cu since the last reset
 # the same launches by card index (a mesh's shards launch on their own)
 LAUNCHES_BY_DEVICE = collections.Counter()
 graphs.count_launches(sys.modules[__name__], "sell_spmv_kernel")
+# the kernel's epilogues, numbered as csrc/sell_spmv.cu's ``Epilogue``
+EPILOGUES = {"plain": 0, "residual": 1, "masked": 2, "correction": 3}
+MAPS = ("coarse_out", "coarse_in")
+# launches that carried an epilogue or ran through a renumbered copy, by
+# kind (each also counts in KERNEL_LAUNCHES); a replay adds what its
+# capture counted
+EPILOGUE_LAUNCHES = collections.Counter()
+graphs.count_kinds(EPILOGUE_LAUNCHES)
 WARP = 32            # threads of a warp: one slice a warp
 BLOCK_THREADS = 256  # csrc/sell_spmv.cu's kThreads: eight slices a block
 LANES = (1, 2, 4, 8, 16, 32)
@@ -274,15 +292,17 @@ def sell_index(M, lanes: int | None = None, device=None,
 class Sell:
     """The packed copy of a TELL, ELL or DELL on one device: ``data`` [P]
     values and ``cols`` [P] int32 columns in ``index``'s order (0 and 0
-    in pads), with the index's ``slice_ptr``, ``row_of`` and ``steps``."""
+    in pads), with the index's ``slice_ptr``, ``row_of`` and ``steps``;
+    ``shape`` is its product's.  ``row_of`` given: the rows of y that
+    the packed rows write, in place of the index's (-1: none)."""
 
-    def __init__(self, index: SellIndex, data, cols, shape):
+    def __init__(self, index: SellIndex, data, cols, shape, row_of=None):
         self.index = index
         self.data = data
         self.cols = cols
         self.shape = shape
-        self.slice_ptr, self.row_of, self.steps = (
-            index.slice_ptr, index.row_of, index.steps)
+        self.slice_ptr, self.steps = index.slice_ptr, index.steps
+        self.row_of = index.row_of if row_of is None else row_of
 
     @property
     def lanes(self) -> int:
@@ -310,12 +330,28 @@ def pack(M, lanes: int | None = None, index: SellIndex | None = None) -> Sell:
     return Sell(index, data, cols, M.shape)
 
 
-def sell_spmv_plain(packed: Sell, x):
+def sell_spmv_plain(packed: Sell, x, epilogue: str = "plain", u=None,
+                    m=None):
     """Plain PyTorch product over the packed layout, in the kernel's
     order: each of a slice's 32 threads sums its slots in slot order from
     0 (one gather, multiply and add a step, kept only in the slices that
     still have that step), then the lanes of each row combine by the
-    kernel's shuffle tree, and each row's sum goes to its original row."""
+    kernel's shuffle tree, and each row's sum goes to its original row;
+    then the ``epilogue`` (see ``EPILOGUES``) as PyTorch's elementwise
+    ops."""
+    y = _sell_sum_plain(packed, x)
+    if epilogue == "residual":
+        return u - y
+    if epilogue == "masked":
+        return m * u - y
+    if epilogue == "correction":
+        return u + y
+    if epilogue != "plain":
+        raise ValueError(f"epilogue {epilogue!r}: one of {list(EPILOGUES)}")
+    return y
+
+
+def _sell_sum_plain(packed: Sell, x):
     index = packed.index
     rows_per = WARP // index.lanes
     acc = x.new_zeros(index.n_slices, WARP)
@@ -338,11 +374,15 @@ def sell_spmv_plain(packed: Sell, x):
     return y[:n]
 
 
-def sell_spmv_cuda(packed: Sell, x):
+def sell_spmv_cuda(packed: Sell, x, epilogue: str = "plain", u=None,
+                   m=None, kind: str | None = None):
     """Launch ``csrc/sell_spmv.cu`` on PyTorch's current stream (no
     synchronisation): ``packed`` a ``Sell`` of float32/float64 values on a
     CUDA device, ``x`` a contiguous vector of the same dtype there, every
-    column inside x."""
+    column inside x; with an ``epilogue`` (``EPILOGUES``), its vectors
+    ``u`` (and ``m`` for "masked"), contiguous, one entry a row of y.
+    A launch counts in ``KERNEL_LAUNCHES`` and, under ``kind`` (default:
+    the epilogue's name, none for a plain one), in ``EPILOGUE_LAUNCHES``."""
     global KERNEL_LAUNCHES
     if packed is None:
         raise ValueError("sell_spmv_cuda: the container has no packed copy "
@@ -363,17 +403,83 @@ def sell_spmv_cuda(packed: Sell, x):
             and x.shape[0] == packed.shape[1]):
         raise ValueError(f"sell_spmv_cuda: x must be a contiguous vector of "
                          f"{packed.shape[1]} entries")
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"sell_spmv_cuda: epilogue {epilogue!r}, one of "
+                         f"{list(EPILOGUES)}")
+    reads = {"plain": (), "masked": (u, m)}.get(epilogue, (u,))
+    for v in reads:
+        if not (isinstance(v, torch.Tensor) and v.device == data.device
+                and v.dtype == data.dtype and v.dim() == 1
+                and v.is_contiguous() and v.shape[0] == packed.shape[0]):
+            raise ValueError(f"sell_spmv_cuda: the {epilogue} epilogue's "
+                             f"vectors must be contiguous {data.dtype} "
+                             f"vectors of {packed.shape[0]} entries on "
+                             f"{data.device}")
     y = torch.empty(packed.shape[0], dtype=data.dtype, device=data.device)
     n_slices = packed.index.n_slices
     if n_slices == 0:
         return y
+    u_ptr, m_ptr = [v.data_ptr() for v in reads] + [None] * (2 - len(reads))
     cuda.launch("sell_spmv", data.dtype, data.device, data.data_ptr(),
                 cols.data_ptr(), packed.slice_ptr.data_ptr(),
                 packed.row_of.data_ptr(), x.data_ptr(), y.data_ptr(),
-                n_slices, packed.lanes)
+                u_ptr, m_ptr, n_slices, packed.lanes, EPILOGUES[epilogue])
     KERNEL_LAUNCHES += 1
     LAUNCHES_BY_DEVICE[data.device.index] += 1
+    kind = kind or (None if epilogue == "plain" else epilogue)
+    if kind is not None:
+        EPILOGUE_LAUNCHES[kind] += 1
     return y
+
+
+class Fused:
+    """The operand of a gather product ``A.matvec(Fused(...))`` that does
+    the vector work around it in the same launch (one positional
+    argument, as any product takes, so a wrapper of ``matvec`` counts it
+    like any other).  ``kind``:
+
+    * "residual": u - A x;  "masked": m * u - A x;  "correction": u + A x
+      (``EPILOGUES``, one entry of u and m a row of A);
+    * "coarse_out", "coarse_in" (``MAPS``): the plain product through
+      ``packed``, a copy of A's packed copy over the same index and
+      values with its output rows (``row_of``) or its input columns
+      renumbered; the V-cycle's R writes, and its P reads, the coarse
+      vector so (air/fullspace.py::coarse_maps).
+
+    ``x`` is the vector the product reads."""
+
+    def __init__(self, kind: str, x, u=None, m=None, packed=None):
+        if kind == "plain" or kind not in (*EPILOGUES, *MAPS):
+            raise ValueError(f"Fused: kind {kind!r}")
+        if (kind in MAPS) != (packed is not None):
+            raise ValueError(f"Fused: kind {kind!r} "
+                             + ("needs" if kind in MAPS else "takes no")
+                             + " renumbered packed copy")
+        self.kind = kind
+        self.x = x
+        self.u = u
+        self.m = m
+        self.packed = packed
+
+
+def fused_product(packed: Sell, op: Fused):
+    """The product a ``Fused`` operand asks of the operator whose packed
+    copy is ``packed``: the kernel on a CUDA device, ``sell_spmv_plain``
+    (the kernel's order) elsewhere."""
+    if packed is None:
+        raise ValueError("a Fused product needs the operator's packed copy")
+    epilogue, u, m = op.kind, op.u, op.m
+    if op.kind in MAPS:
+        if op.packed.index is not packed.index or op.packed.data is not (
+                packed.data):
+            raise ValueError(f"{op.kind}: not a renumbered copy of the "
+                             "operator's packed copy")
+        packed, epilogue, u, m = op.packed, "plain", None, None
+    if packed.data.is_cuda:
+        cont = lambda v: None if v is None else v.contiguous()
+        return sell_spmv_cuda(packed, op.x.contiguous(), epilogue, cont(u),
+                              cont(m), kind=op.kind)
+    return sell_spmv_plain(packed, op.x, epilogue, u, m)
 
 
 def _packed(M):
@@ -452,7 +558,10 @@ class ELL:
 
     def matvec(self, x):
         """y = A @ x: the kernel on a CUDA tensor; on a CPU one, one gather
-        and row sums."""
+        and row sums.  A ``Fused`` operand: the product with its vector
+        work (``fused_product``)."""
+        if isinstance(x, Fused):
+            return fused_product(self.packed, x)
         if x.is_cuda:
             return sell_spmv_cuda(self.packed, x.contiguous())
         n, K = self.data.shape
@@ -568,7 +677,10 @@ class TELL:
 
     def matvec(self, x):
         """y = A @ x: the kernel on a CUDA tensor, the plain slot loop
-        (summed in slot order) on a CPU one."""
+        (summed in slot order) on a CPU one.  A ``Fused`` operand: the
+        product with its vector work (``fused_product``)."""
+        if isinstance(x, Fused):
+            return fused_product(self.packed, x)
         if x.is_cuda:
             return sell_spmv_cuda(self.packed, x.contiguous())
         return tell_spmv_plain(self.data, self.cols, x)

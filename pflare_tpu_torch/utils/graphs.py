@@ -17,9 +17,10 @@ one:
   (``capture_error_mode="thread_local"``: other threads may use the card
   meanwhile), in the memory pool of its ``Programs`` (one per PCAIR);
 * counters: the kernels' launch counters (the ``KERNEL_LAUNCHES`` of
-  each module that registers with ``count_launches``) and the meshes'
-  exchange logs (``parallel.mesh.Mesh.record``) change only while Python
-  runs.  The capture's changes are taken back (it launched nothing) and
+  each module that registers with ``count_launches``), the counters by
+  kind registered with ``count_kinds`` (``ell.EPILOGUE_LAUNCHES``) and
+  the meshes' exchange logs (``parallel.mesh.Mesh.record``) change only
+  while Python runs.  The capture's changes are taken back (it launched nothing) and
   added at every replay, so they read as they would without graphs;
 * no fallback: a capture or replay that fails raises;
 * spans (``timers.collect``): each call is a ``program`` span tagged
@@ -56,6 +57,10 @@ from .timers import Stopwatch, span
 # replay advances, in the order of registration (``count_launches``)
 LAUNCH_COUNTERS: list = []
 
+# counters by kind (``collections.Counter``s, changed in place) that a
+# replay advances like the launch counters (``count_kinds``)
+KIND_COUNTERS: list = []
+
 # keep each captured cudaGraph_t, so that ``Program.graph_kernels`` can
 # list its kernel nodes (a check's setting: off, the graph is freed once
 # instantiated, as PyTorch does by default)
@@ -74,6 +79,13 @@ def count_launches(module, kernel: str) -> None:
         LAUNCH_COUNTERS.append((kernel, module))
 
 
+def count_kinds(counter: collections.Counter) -> None:
+    """Register ``counter`` (launches by kind), so that a replay adds to
+    it what its capture counted."""
+    if all(c is not counter for c in KIND_COUNTERS):
+        KIND_COUNTERS.append(counter)
+
+
 def enabled(device) -> bool:
     """Whether ``PCAIR(jit=True)`` captures graphs on ``device``: only a
     CUDA device has them; elsewhere the same code runs eagerly."""
@@ -81,16 +93,21 @@ def enabled(device) -> bool:
 
 
 def read_counters(meshes=()):
-    """The launch counters and each mesh's exchange log, copied."""
+    """The launch counters, each mesh's exchange log and the counters by
+    kind, copied."""
     return ([m.KERNEL_LAUNCHES for _, m in LAUNCH_COUNTERS],
-            [{k: list(v) for k, v in mesh.log.items()} for mesh in meshes])
+            [{k: list(v) for k, v in mesh.log.items()} for mesh in meshes],
+            [collections.Counter(c) for c in KIND_COUNTERS])
 
 
 def write_counters(state, meshes=()):
     """Set the counters and logs to ``state`` (from ``read_counters``)."""
-    launches, logs = state
+    launches, logs, kinds = state
     for (_, module), count in zip(LAUNCH_COUNTERS, launches):
         module.KERNEL_LAUNCHES = count
+    for counter, saved in zip(KIND_COUNTERS, kinds):
+        counter.clear()
+        counter.update(saved)
     for mesh, log in zip(meshes, logs):
         mesh.log.clear()
         for key, entry in log.items():
@@ -99,20 +116,23 @@ def write_counters(state, meshes=()):
 
 def _delta(after, before):
     launches = [a - b for a, b in zip(after[0], before[0])]
+    kinds = [a - b for a, b in zip(after[2], before[2])]
     logs = []
     for log_a, log_b in zip(after[1], before[1]):
         logs.append({key: [a - b for a, b in zip(entry,
                                                 log_b.get(key, (0, 0)))]
                      for key, entry in log_a.items()
                      if entry != log_b.get(key)})
-    return launches, logs
+    return launches, logs, kinds
 
 
 def _advance(delta, meshes):
     """Add a replay's counts: what its capture would have counted."""
-    launches, logs = delta
+    launches, logs, kinds = delta
     for (_, module), count in zip(LAUNCH_COUNTERS, launches):
         module.KERNEL_LAUNCHES += count
+    for counter, count in zip(KIND_COUNTERS, kinds):
+        counter.update(count)
     for mesh, log in zip(meshes, logs):
         for key, (calls, nbytes) in log.items():
             entry = mesh.log[key]

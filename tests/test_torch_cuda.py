@@ -876,13 +876,17 @@ def test_graph_kernel_nodes_equal_counted_on_card(monkeypatch):
 
 def _device_built(dev, kind, dtype=torch.float32):
     """(matrix, PCAIR set up on the card by ``setup_device``): the bench's
-    options on adv_diff_2d(256), or FV upwind advection on a 2 x 32^2
-    triangle mesh (every operator a DELL)."""
+    options on adv_diff_2d(256), FV upwind advection on a 2 x 32^2
+    triangle mesh (every operator a DELL), or DG(1) upwind advection on
+    it with the default options, reordered as the benchmark's DG cell."""
     from torch_cases import tri_mesh
 
     if kind == "256^2":
         A = tpf.adv_diff_2d(256)
         opts = tpf.AIROptions().replace(**_BENCH)
+    elif kind == "DG1":
+        A = tpf.dg1_upwind_advection(*tri_mesh(32, seed=2))
+        opts = tpf.AIROptions(reorder="auto")
     else:
         A = tpf.fv_upwind_advection(*tri_mesh(32, seed=2))
         opts = tpf.AIROptions(a_lump=True)
@@ -924,6 +928,57 @@ def test_dell_kernel_equals_plain_on_card(dtype, tol):
             ref = dell_spmv_plain(D, x)
             assert float((y - ref).abs().max()) <= tol * float(
                 ref.abs().max()), kind
+    for kind in ("256^2", "DG1"):
+        _fused_cycle_equals_today(dev, kind, dtype)
+
+
+def _fused_cycle_equals_today(dev, kind, dtype):
+    """On a device-built form in ``dtype``: the fused V-cycle (epilogues,
+    R and P through their coarse maps) gives the x of the test's own copy
+    of today's sequence (the V-cycle with its fused route off and no
+    maps: each plain product, then PyTorch's ops) bit for bit, with every
+    DELL R and P mapped and one gather launch a product; a graphed
+    ``solve_device`` gives the residual norms and x of today's sequence
+    run eagerly, bit for bit."""
+    from collections import Counter
+
+    from pflare_tpu_torch.air import smooth
+    from pflare_tpu_torch.sparse import DELL
+    from pflare_tpu_torch.sparse import ell as tell
+
+    A, pc = _device_built(dev, kind, dtype)
+    dh = pc.upload()
+    n_R = sum(isinstance(lev["R"], DELL) for lev in dh.levels)
+    n_P = sum(isinstance(lev["P"], DELL) for lev in dh.levels)
+    assert n_R > 0 and n_P > 0, kind
+    assert sum(p[0] is not None for p in dh.coarse_maps) == n_R, kind
+    assert sum(p[1] is not None for p in dh.coarse_maps) == n_P, kind
+    rng = np.random.default_rng(20)
+    r = torch.as_tensor(rng.standard_normal(A.shape[0]), dtype=dtype,
+                        device=dev)
+    order = pc.options.smooth_arg
+    kinds, launches = Counter(tell.EPILOGUE_LAUNCHES), tell.KERNEL_LAUNCHES
+    y = smooth.vcycle_kaskade(dh.levels, dh.coarse_inv, r, order,
+                              dh.coarse_maps)
+    fused = tell.EPILOGUE_LAUNCHES - kinds
+    gathered = tell.KERNEL_LAUNCHES - launches
+    gathers, maps = smooth._gathers, dh.coarse_maps
+    smooth._gathers = lambda op, v: False
+    dh.coarse_maps = None
+    try:
+        want = smooth.vcycle_kaskade(dh.levels, dh.coarse_inv, r, order)
+        b = rng.standard_normal(A.shape[0])
+        xe, ne = _eager(pc, lambda: pc.solve_device(b, max_it=6))
+    finally:
+        smooth._gathers, dh.coarse_maps = gathers, maps
+    torch.cuda.synchronize()
+    assert torch.equal(y, want), (kind, dtype)
+    assert fused["coarse_out"] == n_R and fused["coarse_in"] == n_P, kind
+    assert min(fused[k] for k in ("masked", "residual", "correction")) > 0
+    assert sum(fused.values()) <= gathered, kind
+    for _ in range(3):
+        x, norms = pc.solve_device(b, max_it=6)
+    assert torch.equal(norms, ne) and torch.equal(x, xe), (kind, dtype)
 
 
 def test_device_built_graphs_pack_nothing_on_card(monkeypatch):
@@ -953,8 +1008,14 @@ def test_device_built_graphs_pack_nothing_on_card(monkeypatch):
         assert prog.graph_kernels() == counted
         assert counted["sell_spmv_kernel"] > 0
     before = tell.KERNEL_LAUNCHES
+    kinds = tell.EPILOGUE_LAUNCHES.copy()
     pc.solve_device(b, max_it=6)
     assert tell.KERNEL_LAUNCHES - before == counted["sell_spmv_kernel"]
+    # the fused launches a replay adds: what its capture counted, each
+    # one of the graph's gather-kernel nodes
+    fused = tell.EPILOGUE_LAUNCHES - kinds
+    assert fused == prog._delta[2][0]
+    assert 0 < sum(fused.values()) <= counted["sell_spmv_kernel"]
     M = DELL.from_scipy(A, dtype=torch.float32, device=dev)
     ones = torch.ones(A.shape[1], device=dev)
     torch.cuda.synchronize()

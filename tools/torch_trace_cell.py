@@ -19,7 +19,10 @@ and ``graph.launch`` spans against the host reads and the graph replays
 counted apart, the clocks' agreement (``spans.alignment``; where a
 segment's device times wandered from the host's, its events are moved
 back, ``spans.realign``, before the gaps are named), and the span
-metrics' readers.  Also times a closed span (what a span costs with
+metrics' readers; and, by ``pflare_tpu_torch.sparse.ell``'s counters,
+the gather kernel's launches in each segment, those that carried an
+epilogue or a coarse map (``EPILOGUE_LAUNCHES``, by kind) and their share,
+beside the device's seconds by kernel.  Also times a closed span (what a span costs with
 no collector open) and prints, last, one JSON line of the numbers, also
 written to ``--out`` where given.  With ``--device cpu`` (tiny cells in
 the tests' sizes: ``--size n=32``) there is no device trace: only the
@@ -108,9 +111,27 @@ def dump(folder, k, events, hspans, ps, w0, w1):
                   f)
 
 
+def fused_launches(before, after):
+    """The gather kernel's launches between two readings of
+    (``ell.KERNEL_LAUNCHES``, ``ell.EPILOGUE_LAUNCHES``): {"gather": n,
+    "fused": {kind: n}, "fused_pct": share of the gather launches}."""
+    gather = after[0] - before[0]
+    fused = dict(after[1] - before[1])
+    return {"gather": gather, "fused": fused,
+            "fused_pct": (sum(fused.values()) / gather * 100 if gather
+                          else None)}
+
+
+def gather_counts():
+    from pflare_tpu_torch.sparse import ell
+
+    return ell.KERNEL_LAUNCHES, ell.EPILOGUE_LAUNCHES.copy()
+
+
 def segment(cell, n, timers, collecting, device):
     """One traced segment of ``n`` requests: (window s, device events,
-    harness spans, program spans, w0, w1, host reads, replays)."""
+    harness spans, program spans, w0, w1, host reads, replays, gather
+    launches as ``fused_launches`` gives them)."""
     from pflare_tpu_torch.solvers import jitted
     from pflare_tpu_torch.utils import graphs
 
@@ -122,7 +143,7 @@ def segment(cell, n, timers, collecting, device):
         replay(self)
 
     graphs.TorchGraph.replay = counted
-    hspans, reads = [], jitted.HOST_READS
+    hspans, reads, counts = [], jitted.HOST_READS, gather_counts()
     cell.sync()
     prof = None
     try:
@@ -149,7 +170,8 @@ def segment(cell, n, timers, collecting, device):
             if e.device_type() == DeviceType.CUDA
             and e.end_ns() > e.start_ns())
     return (window_s, events, hspans, ps, w0, w1,
-            jitted.HOST_READS - reads, replays[0])
+            jitted.HOST_READS - reads, replays[0],
+            fused_launches(counts, gather_counts()))
 
 
 def main():
@@ -207,14 +229,16 @@ def main():
     out["segments"] = []
     for k in range(2 * args.segments):
         collecting = k % 4 in (1, 2)    # closed, open, open, closed, ...
-        (window_s, events, hspans, ps, w0, w1, reads,
-         replays) = segment(cell, n, timers, collecting, device)
+        (window_s, events, hspans, ps, w0, w1, reads, replays,
+         launches) = segment(cell, n, timers, collecting, device)
         seg = {"collecting": collecting, "window_s": window_s,
-               "host_reads": reads, "replays": replays}
+               "host_reads": reads, "replays": replays,
+               "gather_launches": launches}
         if events:
             plain = trace.read_events(events, hspans, w0, w1)
             seg.update(busy_s=plain["busy_s"],
                        idle_pct=(1 - plain["busy_s"] / window_s) * 100,
+                       device_ops=plain["device_ops"],
                        solve_idle_gaps=plain["idle_gaps"])
         if collecting:
             summary = timers.summary(ps)
@@ -248,7 +272,9 @@ def main():
                     "setup_device_s": spans.setup_device_s(rec)}
         out["segments"].append(seg)
         print(f"segment {k}: collecting {collecting}, window "
-              f"{window_s:.6f} s, reads {reads}, replays {replays}",
+              f"{window_s:.6f} s, reads {reads}, replays {replays}, gather "
+              f"launches {launches['gather']}, fused "
+              f"{launches['fused']} ({launches['fused_pct']}%)",
               file=sys.stderr, flush=True)
 
     walls = {c: [s["window_s"] for s in out["segments"]
