@@ -162,7 +162,12 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
     record); (d) (b)'s matrix and RHS written in PETSc binary and read
     back bit for bit by ``read_petsc_matrix``, then PCPFLAREINV
     (default, GMRES, 30 its: the residual falls) and PCAIR
-    (``setup_device``, right GMRES as in (b)) on what was read; (c)
+    (``setup_device``, right GMRES as in (b)) on what was read; (e)
+    the benchmark's 3-D DG(1) operator on 6 x 24^3 tetrahedra
+    (``tet_device_built``): ``setup_device`` in f32, whose coarse rows
+    hold hundreds of entries packed at 2-16 lanes, right GMRES to 1e-5,
+    and ``dell_checks`` on its form with a ``measure`` row for its widest
+    multi-lane DELL; (c)
     ``PHASE14_SETS``: the option sets of tests/test_mesh.py on generated
     meshes of 10-50k DoF (FV, DG(1) straight and curved, SUPG with
     diagonally scaled polynomials and diffusion; triangles, tets and a
@@ -1132,7 +1137,8 @@ def main() -> int:
         "launch_floor_ms": floor_ms,
         "one_program": one_program,
         "dell": {label: {k: v for k, v in run.items()
-                         if k not in ("timing", "fused_timing")}
+                         if k not in ("timing", "fused_timing",
+                                      "multilane_timing")}
                  for label, run in dell_runs.items()},
         "dell_timings": timed["dell"],
         "timings": timed["sell"]})
@@ -2141,15 +2147,18 @@ def dell_checks(np, torch, pcx, bx, label, measure, err):
     every DELL R and P) equal to the plain launch followed by
     ``index_select`` or preceded by ``_place_coarse`` bit for bit;
     ``measure`` on the widest DELL (most stored slots) plain and with
-    each epilogue, and on level 0's R and P through their maps; a counted
+    each epilogue, on the widest DELL packed at two or more lanes a row
+    plain (where it is not the widest), and on level 0's R and P through
+    their maps; a counted
     ``solve_device`` (10 Richardson its, replayed), with the share of its
     gather launches that carried an epilogue or a coarse map
     (``ell.EPILOGUE_LAUNCHES``), and ``gather_routes``;
     the solve through its graph equal to the eager one bit for bit, no
     DELL packed in either, and the graphs' kernel nodes equal to the
     counters (``graph_launches``).  Returns the numbers, with the timing
-    rows under "timing" (the widest DELL's plain product) and
-    "fused_timing"."""
+    rows under "timing" (the widest DELL's plain product),
+    "fused_timing" and "multilane_timing" (None where no DELL has two
+    lanes)."""
     from pflare_tpu_torch.air.device_setup import solve_form_dells
     from pflare_tpu_torch.air.smooth import _place_coarse
     from pflare_tpu_torch.sparse import DELL
@@ -2254,6 +2263,13 @@ def dell_checks(np, torch, pcx, bx, label, measure, err):
     timing = measure(what, widest)
     fused_timing = [measure(what, widest, kind)
                     for kind in ("residual", "masked", "correction")]
+    multi = max((M for M in dells if M.packed.lanes > 1),
+                key=lambda M: M.data.numel(), default=None)
+    multilane = None
+    if multi is not None:
+        multilane = timing if multi is widest else measure(
+            f"{label} widest multi-lane DELL ({names.get(id(multi), '?')})",
+            multi)
     lev0, (R_map, P_map) = dh.levels[0], dh.coarse_maps[0]
     for kind, M, mp in (("coarse_out", lev0["R"], R_map),
                         ("coarse_in", lev0["P"], P_map)):
@@ -2291,7 +2307,7 @@ def dell_checks(np, torch, pcx, bx, label, measure, err):
             "fused_launches": fused, "fused_pct": fused_pct,
             "coarse_maps": mapped, "routes": routes,
             "graph_kernel_nodes": nodes, "timing": timing,
-            "fused_timing": fused_timing}
+            "fused_timing": fused_timing, "multilane_timing": multilane}
 
 
 def install_replay(np, torch, pc, plan, A_old, b, norms_old):
@@ -2615,8 +2631,7 @@ def phase13(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512,
                                             "iterations": 10}
     dell = {"2048^2 device-built": dell_checks(
         np, torch, pc, b2k, "2048^2 device-built", measure, err)}
-    timed["dell"] += [dell["2048^2 device-built"]["timing"],
-                      *dell["2048^2 device-built"]["fused_timing"]]
+    timed["dell"] += dell_rows(dell["2048^2 device-built"])
     dell["2048^2 device-built"]["profiled"] = profile_solve(
         pc, b2k, "2048^2 device-built")
     dh = pc.upload()
@@ -2650,8 +2665,65 @@ def phase13(np, sp, torch, tpf, tdia, tbanded, dev, A512, A2k, host512,
 
 # ~~~~~~~~~~ phase 14: unstructured meshes ~~~~~~~~~~
 
-# grid sides of (a) and (b): 2 m^2 jittered Delaunay triangles each
-PHASE14_M = {"fv": 1024, "dg1": 512}
+# grid sides of (a) and (b): 2 m^2 jittered Delaunay triangles each; of
+# (e): about 6 m^3 tetrahedra of the benchmark's frozen mesh
+PHASE14_M = {"fv": 1024, "dg1": 512, "tet": 24}
+
+
+def dell_rows(run) -> list:
+    """The timing rows of a ``dell_checks`` run, each once."""
+    rows = [run["timing"], *run["fused_timing"]]
+    multi = run["multilane_timing"]
+    return rows + ([multi] if multi is not None and multi is not rows[0]
+                   else [])
+
+
+def tet_device_built(np, torch, tpf, dev, solve, measure, err, timed,
+                     dell_runs):
+    """Phase 14 (e): the benchmark's 3-D DG(1) operator on tetrahedra
+    (``solverbench/generators/dg1_upwind_tet_mesh.py`` at m =
+    ``PHASE14_M["tet"]``), ``setup_device`` with the default options and
+    ``reorder="auto"`` in f32, whose coarse rows hold hundreds of entries
+    (the widest DELL at least 100 slots a row), packed at two or more
+    lanes a row; right GMRES to rtol 1e-5 (cap 60, true residual <=
+    1e-4); ``dell_checks`` on its form: every DELL, each epilogue and
+    each level's R and P through its coarse map bit for bit against
+    ``sell_spmv_plain``, ``measure`` on the widest DELL and on the widest
+    multi-lane one, which must exist."""
+    from pflare_tpu_torch.air.device_setup import solve_form_dells
+    from solverbench import harness
+
+    m = PHASE14_M["tet"]
+    label = f"DG(1) tet m={m}"
+    t0 = time.perf_counter()
+    A = harness.generator("dg1_upwind_tet_mesh")(m=m)
+    t_asm = time.perf_counter() - t0
+    b = np.random.default_rng(1).standard_normal(A.shape[0])
+    pc = tpf.PCAIR(tpf.AIROptions(reorder="auto"), dtype=torch.float32,
+                   device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pc.setup_device(A)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    dells = solve_form_dells(pc.upload())
+    widest = max(M.K for M in dells)
+    lanes = sorted({M.packed.lanes for M in dells})
+    print(f"# {label}: {A.shape[0]} DoF, {A.nnz} nonzeros, frozen "
+          f"generator {t_asm:.3f} s; f32 setup_device {t_dev:.3f} s to "
+          f"completion, {pc.n_levels} levels, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"{len(dells)} DELLs, widest {widest} slots a row, packed at "
+          f"{lanes} lanes", flush=True)
+    require(widest >= 100 and lanes[-1] >= 2, f"{label}: the widest DELL "
+            f"has {widest} slots a row, the most lanes are {lanes[-1]}")
+    solve(f"{label} setup_device", pc, A, b, "gmres", cap=60)
+    run = dell_checks(np, torch, pc, b, f"{label} device-built", measure,
+                      err)
+    require(run["multilane_timing"] is not None, f"{label}: no multi-lane "
+            "DELL was timed")
+    timed["dell"] += dell_rows(run)
+    dell_runs[f"{label} device-built"] = run
 
 
 def mesh_tri(np, m, seed=0, jitter=0.3):
@@ -2933,7 +3005,7 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
         profile_solve(pcd, b, f"{label} device-built")
         run = dell_checks(np, torch, pcd, b, f"{label} device-built",
                           measure, err)
-        timed["dell"] += [run["timing"], *run["fused_timing"]]
+        timed["dell"] += dell_rows(run)
         dell_runs[f"{label} device-built"] = run
         del pcd
         return A, b, top, launches, pc
@@ -3012,6 +3084,11 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
               " s")
         solve("file DG(1) PCAIR", pcf, Af, vecs[0], "gmres")
         del pcf, Af, vecs
+
+        # (e) 3-D DG(1) on tetrahedra: the wide coarse rows on the gather
+        # kernel
+        tet_device_built(np, torch, tpf, dev, solve, measure, err, timed,
+                         dell_runs)
         t_ab = time.perf_counter() - t_phase
 
         # (c) small meshes, f64: card against its CPU twin
@@ -3057,7 +3134,7 @@ def phase14(np, sp, torch, tpf, tdia, tbanded, dev, check, measure, timed,
             runs[label] = {"launches": launches,
                            "iterations": res.iterations}
             del pc, cpu
-        print(f"# phase 14 (a, b, d) {t_ab:.3f} s, (c) "
+        print(f"# phase 14 (a, b, d, e) {t_ab:.3f} s, (c) "
               f"{time.perf_counter() - t_phase - t_ab:.3f} s; {peak_rss()}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

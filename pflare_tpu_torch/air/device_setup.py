@@ -40,10 +40,10 @@ from ..options import AIROptions
 from ..params import (C_POINT, F_POINT, CFSplittingType, InverseType, ZType,
                       tolerances)
 from ..sparse.dell import (DELL, OFFBIG, PADCOL, _pad_cols, apply_restrict_plan,
-                           compact, dell_spmv_plain, distinct_offsets_device,
-                           drop_rows, extract_dell, gather_at_pattern,
-                           max_row_count, newton_poly_dell, onecol_product,
-                           pack_dells, poly_dell, restrict_plan, sort_rows,
+                           by_chunks, chunk_passes, compact, dell_spmv_plain,
+                           distinct_offsets_device, drop_rows, extract_dell,
+                           gather_at_pattern, max_row_count, newton_poly_dell,
+                           onecol_product, pack_dells, poly_dell, sort_rows,
                            spgemm_drop_dell, transpose_pattern,
                            union_patterns)
 from ..sparse.dia import DIA
@@ -636,30 +636,35 @@ def _lair_solve_all(affd1, affc1, S, I, acfd, acfc):
     ch = max(min(n_c, _LAIR_CHUNK_ELEMENTS // per_row), 1)
     eye = torch.eye(kc, dtype=affd1.dtype, device=affd1.device)
     out = []
-    for s in range(0, n_c, ch):
-        J, Ib = S[s:s + ch], I[s:s + ch]
-        Jm = J < PADCOL
-        Jsafe = torch.where(Jm, torch.clamp(J, max=n_ff - 1), n_ff).long()
-        bc = affc1[Jsafe]                       # [CH, kc, Kff]
-        bd = affd1[Jsafe]
-        eq = (bc[:, None, :, :] == Ib[:, :, None, None]).to(bd.dtype)
-        M = torch.einsum("back,bck->bac", eq, bd)        # [CH, ic, kc]
-        live_I = (Ib < PADCOL).to(bd.dtype)
-        M = M * live_I[:, :, None]
-        req = (acfc[s:s + ch][:, None, :] == Ib[:, :, None]).to(bd.dtype)
-        rhs = -torch.einsum("bak,bk->ba", req, acfd[s:s + ch]) * live_I
-        aug = eye[None, :, :] * (~Jm)[:, None, :].to(M.dtype)
-        M_ext = torch.cat([M, aug], dim=1)
-        rhs_ext = torch.cat([rhs, rhs.new_zeros((rhs.shape[0], kc))], dim=1)
-        Q, R = torch.linalg.qr(M_ext)
-        qtb = torch.einsum("bij,bi->bj", Q, rhs_ext)
-        z = torch.linalg.solve_triangular(R, qtb[..., None],
-                                          upper=True)[..., 0]
-        rdiag = torch.diagonal(R, dim1=1, dim2=2).abs()
-        good = (rdiag.amin(dim=1)
-                > 1e-12 * torch.clamp(rdiag.amax(dim=1), min=1e-300))
-        good = good & torch.isfinite(z).all(dim=1)
-        out.append(torch.where(good[:, None] & Jm, z, 0.0))
+    starts = range(0, n_c, ch)
+    with chunk_passes("lair", len(starts)):
+        for s in starts:
+            J, Ib = S[s:s + ch], I[s:s + ch]
+            Jm = J < PADCOL
+            Jsafe = torch.where(Jm, torch.clamp(J, max=n_ff - 1),
+                                n_ff).long()
+            bc = affc1[Jsafe]                       # [CH, kc, Kff]
+            bd = affd1[Jsafe]
+            eq = (bc[:, None, :, :] == Ib[:, :, None, None]).to(bd.dtype)
+            M = torch.einsum("back,bck->bac", eq, bd)    # [CH, ic, kc]
+            live_I = (Ib < PADCOL).to(bd.dtype)
+            M = M * live_I[:, :, None]
+            req = (acfc[s:s + ch][:, None, :]
+                   == Ib[:, :, None]).to(bd.dtype)
+            rhs = -torch.einsum("bak,bk->ba", req, acfd[s:s + ch]) * live_I
+            aug = eye[None, :, :] * (~Jm)[:, None, :].to(M.dtype)
+            M_ext = torch.cat([M, aug], dim=1)
+            rhs_ext = torch.cat([rhs, rhs.new_zeros((rhs.shape[0], kc))],
+                                dim=1)
+            Q, R = torch.linalg.qr(M_ext)
+            qtb = torch.einsum("bij,bi->bj", Q, rhs_ext)
+            z = torch.linalg.solve_triangular(R, qtb[..., None],
+                                              upper=True)[..., 0]
+            rdiag = torch.diagonal(R, dim1=1, dim2=2).abs()
+            good = (rdiag.amin(dim=1)
+                    > 1e-12 * torch.clamp(rdiag.amax(dim=1), min=1e-300))
+            good = good & torch.isfinite(z).all(dim=1)
+            out.append(torch.where(good[:, None] & Jm, z, 0.0))
     return torch.cat(out, dim=0)
 
 
@@ -704,16 +709,20 @@ def _improve_z_device(Z: DELL, A_ff: DELL, A_cf: DELL, inv_diag,
     (reference: src/Grid_Transfer_Improve.F90:200-376):
     Z <- Z - (Z A_ff + A_cf)|_S(Z) D with D the diagonal of the
     approximate inverse of A_ff.  Every step restricts onto Z's pattern,
-    so the steps share one restriction plan."""
+    so the steps share one restriction plan (``by_chunks``: each row's
+    steps read that row alone)."""
     n_f = A_ff.shape[0]
     safe = torch.clamp(Z.cols, max=n_f - 1).long()
     dcol = torch.where(Z.cols < PADCOL, inv_diag[safe], 0.0)
     acf_at = gather_at_pattern(Z.cols, A_cf)
-    T = restrict_plan(Z.cols, A_ff)
-    zv = Z.data
-    for _ in range(its):
-        zv = zv - (apply_restrict_plan(T, zv) + acf_at) * dcol
-    return DELL(zv, Z.cols, Z.n_cols)
+
+    def steps(rows, T):
+        zv, acf, d = Z.data[rows], acf_at[rows], dcol[rows]
+        for _ in range(its):
+            zv = zv - (apply_restrict_plan(T, zv) + acf) * d
+        return zv
+
+    return DELL(by_chunks(Z.cols, A_ff, steps), Z.cols, Z.n_cols)
 
 
 def _one_point_w(A_fc: DELL):

@@ -36,11 +36,15 @@ never packs.
 
 from __future__ import annotations
 
+import collections
+from contextlib import nullcontext
+
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from .. import cuda
+from ..utils.timers import span
 from .dtypes import numpy_dtype
 from .ell import (SORT_WINDOW, Fused, fused_product, pack, sell_indices,
                   sell_spmv_cuda)
@@ -58,7 +62,27 @@ _SPGEMM_CHUNK_LIMIT = 1 << 26
 # the per-row lookup of a restriction plan (restrict_plan) works on
 # [rows, K, max(K, Ka)] tensors; chunks keep them within this many
 _RESTRICT_CHUNK_LIMIT = 1 << 26
+# a recurrence on a restriction plan of more values (rows x K x K) than
+# this runs chunk by chunk (by_chunks) and never holds the whole plan.  No
+# memory rule: it lies above the largest plan of the 3072^2 FD benchmark
+# (3.35e9 values), because cuBLAS's batched product over a chunk can round
+# otherwise than over the whole batch, and a lower limit changes the last
+# bits of such a set-up
+_RESTRICT_PLAN_LIMIT = 1 << 32
 PACKS = 0  # DELLs packed so far (a CUDA-graph capture packs none)
+# the device set-up's passes over row chunks, by product: "spgemm" (each
+# pass reads one integer back), "restrict" (restrict_plan) and "lair"
+# (air/device_setup.py's local least-squares blocks); a product that fits
+# its limit counts one pass
+SETUP_CHUNKS = collections.Counter()
+
+
+def chunk_passes(kind: str, passes: int):
+    """Count ``passes`` passes of a ``kind`` product in ``SETUP_CHUNKS``;
+    the context to run them in: a ``dell.chunks`` span (tagged ``kind``)
+    where there is more than one, else nothing."""
+    SETUP_CHUNKS[kind] += passes
+    return span("dell.chunks", kind) if passes > 1 else nullcontext()
 
 
 class DELL:
@@ -338,10 +362,13 @@ def drop_rows(cols, vals, tol, relative: bool, lump: bool, diag_of_row=None):
 
 def compact(cols, vals, new_K: int):
     """Push live entries left (stable sort) and set the padded width to
-    ``new_K`` (slicing, or padding with dead slots)."""
+    ``new_K`` (a copy of the first ``new_K`` slots, or padding with dead
+    slots).  A narrower result is a copy and not a view, so it does not
+    keep the sorted full width alive: a SpGEMM chunk's candidates run to
+    hundreds of times its kept width on 3-D AIR's coarse levels."""
     c, v = sort_rows(cols, vals)
     if new_K <= c.shape[1]:
-        return c[:, :new_K], v[:, :new_K]
+        return c[:, :new_K].contiguous(), v[:, :new_K].contiguous()
     extra = new_K - c.shape[1]
     return (_pad_cols(c, new_K),
             torch.cat([v, v.new_zeros((v.shape[0], extra))], dim=1))
@@ -410,11 +437,13 @@ def spgemm_drop_parts(a_data, a_cols, bc1, bd1, nb: int, tol: float,
     ch = n if n * per_row <= _SPGEMM_CHUNK_LIMIT else max(
         _SPGEMM_CHUNK_LIMIT // per_row, 1)
     parts = []
-    for s in range(0, n, ch):
-        c, v = _spgemm_drop_rows(a_data[s:s + ch], a_cols[s:s + ch], bc1,
-                                 bd1, nb, float(tol), relative, lump,
-                                 diag_of_row[s:s + ch])
-        parts.append(compact(c, v, max(max_row_count(c), 1)))
+    starts = range(0, n, ch)
+    with chunk_passes("spgemm", len(starts)):
+        for s in starts:
+            c, v = _spgemm_drop_rows(a_data[s:s + ch], a_cols[s:s + ch],
+                                     bc1, bd1, nb, float(tol), relative,
+                                     lump, diag_of_row[s:s + ch])
+            parts.append(compact(c, v, max(max_row_count(c), 1)))
     return parts
 
 
@@ -436,9 +465,11 @@ def spgemm_drop_dell(A: DELL, B: DELL, tol: float, relative: bool,
     and of the reference's product + drop chain.  One integer read back
     sizes the output (one a chunk for a product above
     ``_SPGEMM_CHUNK_LIMIT`` candidates, whose chunks are compacted as they
-    come).  ``diag_of_row``: the column that counts as each row's
-    protected diagonal (default the row index; the coarse-rows-only RAP
-    passes the global coarse positions).
+    come).  Without lumping the product runs over live candidates alone
+    (``_spgemm_drop_live``: one more read, of the rows' candidate counts),
+    with the padded product's result bit for bit.  ``diag_of_row``: the
+    column that counts as each row's protected diagonal (default the row
+    index; the coarse-rows-only RAP passes the global coarse positions).
 
     Row-sharded operands (``ShardedDELL`` on one mesh) take the
     neighbour-only halo product when the partition is banded
@@ -458,14 +489,93 @@ def spgemm_drop_dell(A: DELL, B: DELL, tol: float, relative: bool,
         if parts is None:
             A.mesh.all_gather(B.data, A.label)
             A.mesh.all_gather(B.cols, A.label)
-    if parts is None:
-        bc1, bd1 = _sentinel_rows(B)
-        parts = spgemm_drop_parts(A.data, A.cols, bc1, bd1, B.data.shape[0],
-                                  tol, relative, lump, diag_of_row)
-    c, v = stack_parts(parts)
+    if parts is None and not lump:
+        c, v = _spgemm_drop_live(A, B, tol, relative, diag_of_row)
+    else:
+        if parts is None:
+            bc1, bd1 = _sentinel_rows(B)
+            parts = spgemm_drop_parts(A.data, A.cols, bc1, bd1,
+                                      B.data.shape[0], tol, relative, lump,
+                                      diag_of_row)
+        c, v = stack_parts(parts)
     if isinstance(A, ShardedDELL):
         return ShardedDELL(v, c, B.n_cols, A.mesh, A.label)
     return DELL(v, c, B.n_cols)
+
+
+def _expand_live(a_data, a_cols, bc1, bd1, blen1, width: int):
+    """The live candidates of a block of A's rows against B's left-packed
+    rows (``bc1``/``bd1`` with a dead sentinel row last, ``blen1`` their
+    live lengths, 0 for the sentinel), ``width`` slots a row: slot p of row
+    i holds entry j of B's row at A's slot k, in (k, j) order, as the
+    padded expansion holds them less its dead slots; slots past the row's
+    candidates are dead (PADCOL, 0)."""
+    rows, Ka = a_cols.shape
+    nb, Kb = bc1.shape[0] - 1, bc1.shape[1]
+    alive = a_cols < PADCOL
+    safe = torch.where(alive, torch.clamp(a_cols, max=nb - 1), nb).long()
+    lens = blen1[safe]
+    ends = torch.cumsum(lens, dim=1)
+    p = torch.arange(width, device=a_cols.device).expand(rows, width)
+    k = torch.searchsorted(ends, p.contiguous(), right=True)
+    live = k < Ka
+    k = torch.clamp(k, max=Ka - 1)
+    j = p - (torch.gather(ends, 1, k) - torch.gather(lens, 1, k))
+    flat = torch.gather(safe, 1, k) * Kb + torch.clamp(j, 0, Kb - 1)
+    cols = torch.where(live, bc1.reshape(-1)[flat], PADCOL)
+    vals = torch.where(live, torch.gather(a_data, 1, k)
+                       * bd1.reshape(-1)[flat], 0.0)
+    return cols, vals
+
+
+def _spgemm_drop_live(A: DELL, B: DELL, tol: float, relative: bool,
+                      diag_of_row):
+    """drop(A @ B) without lumping over live candidates alone: A's rows
+    sorted by their count of live candidates, most first, cut into chunks
+    of at most ``_SPGEMM_CHUNK_LIMIT`` slots padded to the chunk's first
+    (largest) count, each expanded by ``_expand_live``, merged, dropped
+    and compacted as ``_spgemm_drop_rows`` does, the rows put back in
+    their order at the end.  Each row's candidates come in the padded
+    expansion's order, so its sums and drops are the padded product's,
+    bit for bit; on 3-D AIR's coarse levels, whose rows are padded to the
+    widest, the padded expansion sorts many times the live candidates.
+    Reads the candidate counts back once, then one integer a chunk.
+    (With lumping the dropped values' row sum runs over the padded width,
+    so a lumped product keeps ``spgemm_drop_parts``.)"""
+    n = A.data.shape[0]
+    bc, bd = compact(B.cols, B.data, B.K)     # live slots first
+    bc1, bd1 = _sentinel_rows(DELL(bd, bc, B.n_cols))
+    blen1 = (bc1 < PADCOL).sum(dim=1)
+    alive = A.cols < PADCOL
+    safe = torch.where(alive, torch.clamp(A.cols, max=B.data.shape[0] - 1),
+                       B.data.shape[0]).long()
+    counts, order = torch.sort(blen1[safe].sum(dim=1), descending=True,
+                               stable=True)
+    counts = counts.cpu().tolist()
+    chunks, s = [], 0
+    while s < n:
+        width = max(counts[s], 1)
+        e = min(n, s + max(_SPGEMM_CHUNK_LIMIT // width, 1))
+        chunks.append((s, e, width))
+        s = e
+    parts = []
+    with chunk_passes("spgemm", len(chunks)):
+        for s, e, width in chunks:
+            rows = order[s:e]
+            ccols, cvals = _expand_live(A.data[rows], A.cols[rows], bc1,
+                                        bd1, blen1, width)
+            ccols, cvals = segsum_rows(*sort_rows(ccols, cvals))
+            c, v = drop_rows(ccols, cvals, float(tol), relative, False,
+                             diag_of_row=diag_of_row[rows])
+            del ccols, cvals
+            parts.append(compact(c, v, max(max_row_count(c), 1)))
+    if not parts:
+        return (torch.full((0, 1), PADCOL, dtype=A.cols.dtype,
+                           device=A.device), A.data.new_zeros((0, 1)))
+    c, v = stack_parts(parts)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(n, device=order.device)
+    return c[back], v[back]
 
 
 def onecol_product(A: DELL, pcol, pval, n_cols_new: int) -> DELL:
@@ -541,7 +651,12 @@ def _extract_rows(A: DELL, row_idx, col_mask, col_newidx, ensure_diag):
 # Z), each collapses to a per-row local operator
 #     T[i, k, j] = A[Xc[i, k], Xc[i, j]]
 # and a product is out[i, j] = sum_k Xv[i, k] T[i, k, j]: A's rows are
-# looked up once per pattern, not once per product.
+# looked up once per pattern, not once per product.  Every such
+# recurrence is row by row, so past ``_RESTRICT_PLAN_LIMIT`` it runs over
+# row chunks (``plan_chunks``), each chunk's plan built once and dropped
+# after its rows' last product: a whole plan holds rows x K^2 values,
+# which on 3-D AIR's coarse levels (K in the hundreds) is many times the
+# level's own matrices.
 
 
 def _restrict_plan_rows(xc, A: DELL):
@@ -560,17 +675,48 @@ def _restrict_plan_rows(xc, A: DELL):
     return torch.where(alive[:, :, None], T, 0.0)
 
 
+def plan_chunks(Xc, A: DELL):
+    """The restriction plan of ``Xc`` against ``A`` in row chunks: yields
+    (first row, last row + 1, T of those rows), each chunk's T built as it
+    comes, at most ``_RESTRICT_CHUNK_LIMIT`` values of T and of its
+    lookups (rows x K x max(K, Ka)) a chunk."""
+    n, K = Xc.shape
+    per_row = max(K * max(K, A.K), 1)
+    ch = max(n if n * per_row <= _RESTRICT_CHUNK_LIMIT
+             else _RESTRICT_CHUNK_LIMIT // per_row, 1)
+    starts = range(0, n, ch)
+    with chunk_passes("restrict", len(starts)):
+        for s in starts:
+            yield s, min(s + ch, n), _restrict_plan_rows(Xc[s:s + ch], A)
+
+
 def restrict_plan(Xc, A: DELL):
     """T ``[n, K, K]`` with T[i,k,j] = A[Xc[i,k], Xc[i,j]] (0 where either
     index is dead or the entry lies outside A's pattern), by a per-row
-    binary search of A's sorted rows."""
+    binary search of A's sorted rows, built chunk by chunk into one
+    tensor."""
     n, K = Xc.shape
-    per_row = K * max(K, A.K)
-    if n * per_row <= _RESTRICT_CHUNK_LIMIT:
-        return _restrict_plan_rows(Xc, A)
-    ch = max(_RESTRICT_CHUNK_LIMIT // max(per_row, 1), 1)
-    return torch.cat([_restrict_plan_rows(Xc[s:s + ch], A)
-                      for s in range(0, n, ch)], dim=0)
+    T = None
+    for s, e, part in plan_chunks(Xc, A):
+        if s == 0 and e == n:
+            return part
+        if T is None:
+            T = part.new_empty((n, K, K))
+        T[s:e] = part
+    return T if T is not None else A.data.new_zeros((0, K, K))
+
+
+def by_chunks(Xc, A: DELL, step):
+    """``step(rows, T)``: a row-by-row recurrence on the restriction plan
+    T of ``Xc`` against ``A``.  On the whole plan (``rows`` all rows)
+    where it holds at most ``_RESTRICT_PLAN_LIMIT`` values, else over
+    ``plan_chunks`` (``rows`` a chunk's slice) with one chunk's plan held
+    at a time and the row blocks concatenated."""
+    n, K = Xc.shape
+    if n * K * K <= _RESTRICT_PLAN_LIMIT:
+        return step(slice(None), restrict_plan(Xc, A))
+    return torch.cat([step(slice(s, e), T)
+                      for s, e, T in plan_chunks(Xc, A)], dim=0)
 
 
 def apply_restrict_plan(T, Xv):
@@ -592,16 +738,20 @@ def poly_dell(A: DELL, coeffs) -> DELL:
     """Assembled polynomial sum_k c_k A^k restricted onto A's pattern
     (sparsity order 1; A must carry a structural diagonal, see
     extract_dell(..., ensure_diag=True)).  The powers share one
-    restriction plan.  ``coeffs``: a 1-D tensor of A's dtype and device."""
+    restriction plan (``by_chunks``).  ``coeffs``: a 1-D tensor of A's
+    dtype and device."""
     n = A.data.shape[0]
     acc = coeffs[1] * A.data
     order = coeffs.shape[0] - 1
     if order >= 2:
-        T = restrict_plan(A.cols, A)
-        cur = A.data
-        for k in range(2, order + 1):
-            cur = apply_restrict_plan(T, cur)
-            acc = acc + coeffs[k] * cur
+        def powers(rows, T):
+            cur, out = A.data[rows], acc[rows]
+            for k in range(2, order + 1):
+                cur = apply_restrict_plan(T, cur)
+                out = out + coeffs[k] * cur
+            return out
+
+        acc = by_chunks(A.cols, A, powers)
     isd = A.cols == _ridx(n, A.device, A.cols.dtype)[:, None]
     acc = torch.where(isd, acc + coeffs[0], acc)
     acc = torch.where(A.cols < PADCOL, acc, 0.0)
@@ -612,44 +762,47 @@ def newton_poly_dell(A: DELL, wr, wi, tol_zero: float) -> DELL:
     """Assembled Newton-basis inverse restricted onto A's pattern (device
     sibling of src/Gmres_Poly_Newtonk.kokkos.cxx:15; real arithmetic for
     conjugate pairs).  ``wr``/``wi``: host arrays (the root schedule is
-    resolved on the host)."""
+    resolved on the host).  The recurrence is row by row, so its
+    restricted products share one restriction plan (``by_chunks``)."""
     wr = np.asarray(wr, dtype=np.float64)
     wi = np.asarray(wi, dtype=np.float64)
     n = A.data.shape[0]
     isd = A.cols == _ridx(n, A.device, A.cols.dtype)[:, None]
-    T = isd.to(A.dtype)
-    M = torch.zeros_like(T)
-    plan = []
-
-    def restrict(X):
-        # one plan for the whole recurrence, built on first use, so a
-        # schedule of skipped roots never pays for it
-        if not plan:
-            plan.append(restrict_plan(A.cols, A))
-        return apply_restrict_plan(plan[0], X)
-
+    # the schedule: (root, None) for a real root, (wr, |w|^2, whether the
+    # pair updates T) for a conjugate pair; roots near zero are skipped
     k = len(wr)
+    steps = []
     i = 0
     while i <= k - 2:
         if wi[i] == 0.0:
-            if abs(wr[i]) < tol_zero:
-                i += 1
-                continue
-            M = M + T / wr[i]
-            T = T - restrict(T) / wr[i]
+            if abs(wr[i]) >= tol_zero:
+                steps.append((wr[i], None, False))
             i += 1
         else:
             s = wr[i] ** 2 + wi[i] ** 2
-            if s < tol_zero:
-                i += 2
-                continue
-            T2 = 2.0 * wr[i] * T - restrict(T)
-            M = M + T2 / s
-            if i <= k - 3:
-                T = T - restrict(T2) / s
+            if s >= tol_zero:
+                steps.append((wr[i], s, i <= k - 3))
             i += 2
-    if k >= 1 and wi[k - 1] == 0.0 and abs(wr[k - 1]) > tol_zero:
-        M = M + T / wr[k - 1]
+    last = (wr[k - 1] if k >= 1 and wi[k - 1] == 0.0
+            and abs(wr[k - 1]) > tol_zero else None)
+
+    def recurrence(rows, plan):
+        T = isd[rows].to(A.dtype)
+        M = torch.zeros_like(T)
+        for w, s, update in steps:
+            if s is None:
+                M = M + T / w
+                T = T - apply_restrict_plan(plan, T) / w
+            else:
+                T2 = 2.0 * w * T - apply_restrict_plan(plan, T)
+                M = M + T2 / s
+                if update:
+                    T = T - apply_restrict_plan(plan, T2) / s
+        return M if last is None else M + T / last
+
+    # a schedule of skipped roots never pays for the plan
+    M = (by_chunks(A.cols, A, recurrence) if steps
+         else recurrence(slice(None), None))
     M = torch.where(A.cols < PADCOL, M, 0.0)
     return DELL(M, A.cols, A.n_cols)
 

@@ -66,6 +66,10 @@ MAPS = ("coarse_out", "coarse_in")
 # capture counted
 EPILOGUE_LAUNCHES = collections.Counter()
 graphs.count_kinds(EPILOGUE_LAUNCHES)
+# the packed slots (pads included) that the kernel's launches read, by the
+# launch's lanes a row; a replay adds what its capture counted
+SLOTS_BY_LANES = collections.Counter()
+graphs.count_kinds(SLOTS_BY_LANES)
 WARP = 32            # threads of a warp: one slice a warp
 BLOCK_THREADS = 256  # csrc/sell_spmv.cu's kThreads: eight slices a block
 LANES = (1, 2, 4, 8, 16, 32)
@@ -381,9 +385,7 @@ def sell_spmv_cuda(packed: Sell, x, epilogue: str = "plain", u=None,
     CUDA device, ``x`` a contiguous vector of the same dtype there, every
     column inside x; with an ``epilogue`` (``EPILOGUES``), its vectors
     ``u`` (and ``m`` for "masked"), contiguous, one entry a row of y.
-    A launch counts in ``KERNEL_LAUNCHES`` and, under ``kind`` (default:
-    the epilogue's name, none for a plain one), in ``EPILOGUE_LAUNCHES``."""
-    global KERNEL_LAUNCHES
+    A launch counts as ``count_launch`` says."""
     if packed is None:
         raise ValueError("sell_spmv_cuda: the container has no packed copy "
                          "(its values are not on a CUDA device)")
@@ -424,12 +426,22 @@ def sell_spmv_cuda(packed: Sell, x, epilogue: str = "plain", u=None,
                 cols.data_ptr(), packed.slice_ptr.data_ptr(),
                 packed.row_of.data_ptr(), x.data_ptr(), y.data_ptr(),
                 u_ptr, m_ptr, n_slices, packed.lanes, EPILOGUES[epilogue])
+    count_launch(packed, kind or (None if epilogue == "plain" else epilogue))
+    return y
+
+
+def count_launch(packed: Sell, kind: str | None = None):
+    """Count one launch of the kernel over ``packed``: one in
+    ``KERNEL_LAUNCHES`` and under its card in ``LAUNCHES_BY_DEVICE``, one
+    under ``kind`` (an epilogue or a map; None for a plain product) in
+    ``EPILOGUE_LAUNCHES``, and its packed slots under its lanes in
+    ``SLOTS_BY_LANES``."""
+    global KERNEL_LAUNCHES
     KERNEL_LAUNCHES += 1
-    LAUNCHES_BY_DEVICE[data.device.index] += 1
-    kind = kind or (None if epilogue == "plain" else epilogue)
+    LAUNCHES_BY_DEVICE[packed.data.device.index] += 1
     if kind is not None:
         EPILOGUE_LAUNCHES[kind] += 1
-    return y
+    SLOTS_BY_LANES[packed.lanes] += packed.data.shape[0]
 
 
 class Fused:

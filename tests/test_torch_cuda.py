@@ -289,33 +289,34 @@ def test_stationary_gmres_card_matches_eager_and_cpu(side):
         assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0])
 
 
-@pytest.mark.parametrize("amount", [1, 2, 3])
-def test_resetup_card_matches_cpu(amount):
+def test_resetup_card_matches_cpu():
     """A same-pattern re-setup (``setup(A2, "same")``) uploads the new
-    values: the card's history equals a CPU twin's made after the
-    re-setup, and the DIA kernel runs."""
+    values, for each ``reuse_amount`` 1-3: the card's history equals a
+    CPU twin's made after the re-setup, and the DIA kernel runs."""
     dev = _card()
     A = tpf.adv_diff_2d(48)
     A2 = A.copy()
     A2.data = A2.data * (1.0 + 0.01 * np.random.default_rng(4)
                          .standard_normal(A.nnz))
     b = np.random.default_rng(0).standard_normal(A.shape[0])
-    pc = tpf.PCAIR(tpf.AIROptions(a_lump=True, a_drop=1e-5,
-                                  strong_threshold=0.99, reuse_sparsity=True,
-                                  reuse_amount=amount),
-                   dtype=torch.float64, device=dev).setup(A)
-    first = pc.upload()
-    pc.setup(A2, "same")
-    assert pc.upload() is not first
-    tdia.KERNEL_LAUNCHES = 0
-    res = pc.solve(b, side="right", rtol=1e-10, max_it=60)
-    assert tdia.KERNEL_LAUNCHES > 0 and res.converged
-    ref = pc.on("cpu").solve(b, side="right", rtol=1e-10, max_it=60)
-    assert res.iterations == ref.iterations
-    h, hr = res.history, ref.history
-    assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0])
-    x = res.x.cpu().numpy()
-    assert np.linalg.norm(A2 @ x - b) <= 1e-8 * np.linalg.norm(b)
+    for amount in (1, 2, 3):
+        pc = tpf.PCAIR(tpf.AIROptions(a_lump=True, a_drop=1e-5,
+                                      strong_threshold=0.99,
+                                      reuse_sparsity=True,
+                                      reuse_amount=amount),
+                       dtype=torch.float64, device=dev).setup(A)
+        first = pc.upload()
+        pc.setup(A2, "same")
+        assert pc.upload() is not first, amount
+        tdia.KERNEL_LAUNCHES = 0
+        res = pc.solve(b, side="right", rtol=1e-10, max_it=60)
+        assert tdia.KERNEL_LAUNCHES > 0 and res.converged, amount
+        ref = pc.on("cpu").solve(b, side="right", rtol=1e-10, max_it=60)
+        assert res.iterations == ref.iterations, amount
+        h, hr = res.history, ref.history
+        assert np.all(np.abs(h - hr) <= 1e-8 * hr + 1e-12 * hr[0]), amount
+        x = res.x.cpu().numpy()
+        assert np.linalg.norm(A2 @ x - b) <= 1e-8 * np.linalg.norm(b), amount
 
 
 _BENCH = dict(a_lump=True, a_drop=1e-5, strong_threshold=0.99, max_levels=6,
@@ -397,7 +398,8 @@ def test_setup_device_card_matches_cpu():
     level by level, up to a decision both sides take on a tie (their
     sums round otherwise; ``air/setup_compare.py::compare_setups``
     checks it is one); no level holds a host matrix; the solve converges
-    through the DIA kernel."""
+    through the DIA kernel.  The same on the benchmark's tetrahedra at
+    m = 8, with the graphed ``solve_device`` against the eager one."""
     from pflare_tpu_torch.air.device_setup import DeviceSetupHierarchy
     from pflare_tpu_torch.sparse import DELL
     from pflare_tpu_torch.air.setup_compare import (
@@ -430,6 +432,38 @@ def test_setup_device_card_matches_cpu():
     if not diverged:
         assert res.iterations == cpu.solve(b, side="right", rtol=1e-10,
                                            max_it=60).iterations
+
+    # 3-D DG(1) upwind advection on the benchmark's tetrahedra (m = 8,
+    # 14,088 DoF, f64, the default options with reorder "auto"), whose
+    # coarse rows hold hundreds of entries: the same comparison, and a
+    # graphed solve_device equal to the eager one bit for bit
+    from solverbench import harness
+
+    T = harness.generator("dg1_upwind_tet_mesh")(m=8)
+    topts = tpf.AIROptions(reorder="auto")
+    with LevelMatrices() as seen_card:
+        pt = tpf.PCAIR(topts, dtype=torch.float64, device=dev)
+        pt.setup_device(T)
+    with LevelMatrices() as seen_cpu:
+        ct = tpf.PCAIR(topts, dtype=torch.float64, device="cpu")
+        ct.setup_device(T)
+    notes, diverged, worst, _ = compare_setups(
+        setup_levels(pt.hierarchy), setup_levels(ct.hierarchy), seen_card,
+        seen_cpu, topts, rtol=1e-12, coeff_rtol=None)
+    assert worst <= 1e-12
+    assert max(lvl.device["A_ff"].K for lvl in pt.hierarchy.levels) >= 200
+    b = np.random.default_rng(2).standard_normal(T.shape[0])
+    for _ in range(3):
+        x, norms = pt.solve_device(b, max_it=6)
+    xe, ne = _eager(pt, lambda: pt.solve_device(b, max_it=6))
+    assert torch.equal(x, xe) and torch.equal(norms, ne)
+    res = pt.solve(b, ksp="gmres", side="right", rtol=1e-8, max_it=100)
+    assert res.converged
+    assert (np.linalg.norm(T @ res.x.cpu().numpy() - b)
+            <= 1e-7 * np.linalg.norm(b))
+    if not diverged:
+        assert res.iterations == ct.solve(b, ksp="gmres", side="right",
+                                          rtol=1e-8, max_it=100).iterations
 
 
 def test_dg1_mesh_card_matches_cpu(tmp_path):

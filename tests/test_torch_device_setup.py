@@ -598,6 +598,130 @@ def test_setup_device_matches_reference(name, reference_setups,
          f"{rt.iterations}/{rj.iterations}/{rh.iterations}"))
 
 
+def _embed(idx, n):
+    """The n x len(idx) matrix that puts entry k at row idx[k]."""
+    return sp.csr_matrix((np.ones(len(idx)), (idx, np.arange(len(idx)))),
+                         shape=(n, len(idx)))
+
+
+def _host_levels(h) -> list:
+    """``setup_levels`` views of a host-built hierarchy in the device
+    set-up's full-space form: each level's A_ff, A_fc, R, P and assembled
+    inverse put into n x n by the level's markers (the F rows, the C rows
+    of R, the C columns of P).  No layout is named: the host's are CSR,
+    the device set-up's DELL.  Only for a hierarchy whose levels live in
+    the sorted coarse order (no coarse repartition)."""
+    out = []
+    for lvl in h.levels:
+        assert lvl.coarse_order is None and lvl.inv_Aff.kind == "assembled"
+        n = lvl.n
+        Ef, Ec = _embed(lvl.fine, n), _embed(lvl.coarse, n)
+        inv = (Ef @ lvl.inv_Aff.host_csr @ Ef.T).tocsr()
+        ops = {"A_ff": Ef @ lvl.A_ff @ Ef.T, "A_fc": Ef @ lvl.A_fc @ Ec.T,
+               "R": Ec @ lvl.R, "P": lvl.P @ Ec.T}
+        out.append({
+            "n": n, "fine": np.asarray(lvl.fine),
+            "coarse": np.asarray(lvl.coarse),
+            "ops": {k: (None, None, sp.csr_matrix(M)) for k, M in ops.items()},
+            "inv": {"kind": "assembled", "diag": None,
+                    "coefficients": np.asarray(lvl.inv_Aff.coefficients,
+                                               dtype=np.float64),
+                    "mat": inv, "mat_type": None,
+                    "applied": inv @ probe_vector(n)}})
+    return out
+
+
+def _no_layouts(views) -> list:
+    """``setup_levels`` views with their layouts unnamed, to be held
+    against ``_host_levels``."""
+    for v in views:
+        v["ops"] = {k: (None, None, M) for k, (_, _, M) in v["ops"].items()}
+        v["inv"]["mat_type"] = None
+    return views
+
+
+def test_setup_device_on_tetrahedra(monkeypatch, host_kernels, request):
+    """3-D DG(1) upwind advection on the benchmark's tetrahedra at m = 4
+    (1,744 DoF, f64, the default options with ``reorder="auto"``), whose
+    coarse rows fill to over a hundred entries.  (1) The device set-up
+    builds the host set-up's hierarchy (``compare_setups`` over
+    ``_host_levels``: markers equal on every level, level matrices, A_ff,
+    A_fc, R, P and the assembled inverses within 1e-12 of their largest
+    entry, the polynomial coefficients within 1e-10; this operator puts
+    no entry on a decision's edge, so not even a tie parts them).  The
+    host set-up runs with ``coarse_repartition=False``: ``setup_device``
+    never repartitions its coarse levels, where ``reorder="auto"`` makes
+    the host's RCM-repartition them, and PMISR's random numbers then fall
+    on other points.  (2) The device set-up with its products cut into
+    row chunks of a few rows (SpGEMM, restriction plans, the polynomial's
+    powers on them) builds the hierarchy of the uncut one
+    (``compare_setups``: no decision differs).  (3) GMRES (right, rtol
+    1e-5) on it takes at most the default host setup's iterations + 3
+    (the reference's rule); its answer's float64 relative residual
+    against the benchmark's own frozen operator is within the cells'
+    limit 3e-5 (the bfloat16 control reads 1.66e-3); and its error
+    against ``spsolve``'s is within 2 kappa rtol: ||x - x*|| / ||x*|| <=
+    kappa ||b - A x|| / ||b|| for kappa the 2-norm condition number, and
+    the 2 covers GMRES's own residual running under the true one by
+    rounding."""
+    import scipy.sparse.linalg as spla
+
+    from solverbench import harness
+
+    A = harness.generator("dg1_upwind_tet_mesh")(m=4)
+    opts = tpf.AIROptions(reorder="auto")
+    with LevelMatrices(tds) as seen_whole:
+        pw = tpf.PCAIR(opts, dtype=torch.float64,
+                       device="cpu").setup_device(A)
+    ph = tpf.PCAIR(opts.replace(coarse_repartition=False),
+                   dtype=torch.float64, device="cpu").setup(A)
+    hh = ph.hierarchy
+    notes, diverged, worst, coeff = compare_setups(
+        _host_levels(hh), _no_layouts(setup_levels(pw.hierarchy)),
+        [lvl.A for lvl in hh.levels], seen_whole, opts, VALUES_RTOL,
+        INVERSE_RTOL)
+    assert not diverged and not notes and worst <= VALUES_RTOL
+    assert ph.n_levels == pw.n_levels
+    monkeypatch.setattr(tdell, "_SPGEMM_CHUNK_LIMIT", 1 << 12)
+    monkeypatch.setattr(tdell, "_RESTRICT_CHUNK_LIMIT", 1 << 16)
+    monkeypatch.setattr(tdell, "_RESTRICT_PLAN_LIMIT", 1 << 16)
+    passes = tdell.SETUP_CHUNKS.copy()
+    with LevelMatrices(tds) as seen_cut:
+        pc = tpf.PCAIR(opts, dtype=torch.float64,
+                       device="cpu").setup_device(A)
+    passes = tdell.SETUP_CHUNKS - passes
+    widest = max(lvl.device["A_ff"].K for lvl in pc.hierarchy.levels)
+    assert widest >= 64 and passes["spgemm"] > 4 * pc.n_levels
+    assert passes["restrict"] > 10 * pc.n_levels
+    notes, diverged, worst_cut, _ = compare_setups(
+        setup_levels(pw.hierarchy), setup_levels(pc.hierarchy), seen_whole,
+        seen_cut, opts, VALUES_RTOL, INVERSE_RTOL)
+    assert not diverged and not notes and worst_cut <= VALUES_RTOL
+    b = np.random.default_rng(1).standard_normal(A.shape[0])
+    res = pc.solve(b, ksp="gmres", side="right", rtol=1e-5, max_it=30)
+    host = tpf.PCAIR(opts, dtype=torch.float64, device="cpu").setup(A)
+    rh = host.solve(b, ksp="gmres", side="right", rtol=1e-5, max_it=30)
+    assert res.converged and res.iterations <= rh.iterations + 3
+    x = res.x.numpy()
+    rel = np.linalg.norm(b - A @ x) / np.linalg.norm(b)
+    assert rel <= 3e-5
+    lu = spla.splu(sp.csc_matrix(A))
+    inv = spla.LinearOperator(A.shape, matvec=lu.solve,
+                              rmatvec=lambda v: lu.solve(v, trans="T"))
+    smax = spla.svds(A, k=1, return_singular_vectors=False)[0]
+    sinv = spla.svds(inv, k=1, return_singular_vectors=False)[0]
+    kappa = smax * sinv
+    xs = lu.solve(b)
+    err = np.linalg.norm(x - xs) / np.linalg.norm(xs)
+    assert err <= 2 * kappa * 1e-5
+    request.node.user_properties.append(
+        ("levels / widest A_ff / against the host: operators, coefficients "
+         "/ its device, host / kappa / residual / error",
+         f"{pc.n_levels} / {widest} / {worst:.3e}, {coeff:.3e} / "
+         f"{res.iterations}, {rh.iterations} / {kappa:.1f} / {rel:.3e} / "
+         f"{err:.3e}"))
+
+
 # ~~~~~~~~~~~~~~~~~~~~~~~~ envelope and edges ~~~~~~~~~~~~~~~~~~~~~~~~
 
 

@@ -295,3 +295,127 @@ def test_gather_epilogues_and_coarse_maps(monkeypatch):
         monkeypatch.undo()
         for op in ops.values():
             del op.matvec
+
+
+def test_slot_and_chunk_counters(monkeypatch):
+    """The set-up's and the gather kernel's counters.  (1) On the device
+    set-up of the benchmark's tetrahedra at m = 3 (f64), each launch adds
+    its packed slots under its lanes to ``ell.SLOTS_BY_LANES`` (the
+    kernel's launch site stood in for by ``count_launch`` before the plain
+    product, as ``sell_spmv_cuda`` counts after its launch): a fused
+    V-cycle adds the slots of its products' packed copies, some of them
+    read with two or more lanes a row (the coarse rows are wide); a
+    program of it (``graphs.Program``, the capture stood in for) adds as
+    much at its warm-up and at each replay, none at its capture.  (2)
+    ``dell.SETUP_CHUNKS`` counts a product's passes over row chunks,
+    one where it fits its limit, ceil(rows / chunk) where the padded
+    product (a lumped SpGEMM, a restriction plan) does not, fewer where
+    a product over live candidates alone does not; only a product of
+    several passes opens a ``dell.chunks`` span, tagged with the
+    product.  (3) The recurrences on a restriction plan (``poly_dell``,
+    ``newton_poly_dell``, the device set-up's Z improvement) past
+    ``_RESTRICT_PLAN_LIMIT`` run over the plan's row chunks and give the
+    whole plan's values bit for bit."""
+    from collections import Counter
+
+    from pflare_tpu_torch.utils import graphs, timers
+    from solverbench import harness
+    from test_torch_graphs import RecordingGraph
+
+    A = harness.generator("dg1_upwind_tet_mesh")(m=3)
+    pc = tpf.PCAIR(tpf.AIROptions(reorder="auto"), dtype=torch.float64,
+                   device="cpu")
+    pc.setup_device(A)
+    dh = pc.upload()
+    tdell.pack_dells(solve_form_dells(dh))
+    maps = coarse_maps(dh.levels)
+    products = []
+    plain_matvec = DELL.matvec
+
+    def matvec(self, x):
+        fused = isinstance(x, tell.Fused)
+        packed = x.packed if fused and x.kind in tell.MAPS else self.packed
+        products.append((packed.lanes, packed.data.shape[0]))
+        tell.count_launch(packed, x.kind if fused else None)
+        return (plain_matvec(self, x) if fused
+                else tell.sell_spmv_plain(self.packed, x))
+
+    monkeypatch.setattr(DELL, "matvec", matvec)
+    monkeypatch.setattr(smooth, "_gathers", _cpu_gathers)
+    r = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        A.shape[0]))
+    order = pc.options.smooth_arg
+
+    def cycle(v):
+        return smooth.vcycle_kaskade(dh.levels, dh.coarse_inv, v, order,
+                                     maps)
+
+    before = tell.SLOTS_BY_LANES.copy()
+    want = cycle(r)
+    one = tell.SLOTS_BY_LANES - before
+    expected = Counter()
+    for lanes, slots in products:
+        expected[lanes] += slots
+    assert one == expected and len(products) > 3 * len(dh.levels)
+    assert sum(v for k, v in one.items() if k >= 2) > 0
+    assert set(one) <= set(tell.LANES)
+    monkeypatch.setattr(graphs, "enabled", lambda device: True)
+    monkeypatch.setattr(graphs, "GRAPH", RecordingGraph)
+    RecordingGraph.captures = RecordingGraph.replays = 0
+    prog = graphs.Program(cycle, None, "cpu")
+    before = tell.SLOTS_BY_LANES.copy()
+    for _ in range(4):          # warm-up and capture, three replays
+        assert torch.equal(prog(r), want)
+    assert RecordingGraph.replays == 3
+    assert tell.SLOTS_BY_LANES - before == Counter(
+        {k: 4 * v for k, v in one.items()})
+
+    # (2) the passes over row chunks
+    M = DELL.from_scipy(A, device="cpu")
+    n = M.shape[0]
+    whole_c = tdell.SETUP_CHUNKS.copy()
+    with timers.collect() as spans:
+        whole = tdell.spgemm_drop_dell(M, M, 0.0, True, False)
+        lumped = tdell.spgemm_drop_dell(M, M, 0.1, True, True)
+        plan = tdell.restrict_plan(M.cols, M)
+    assert tdell.SETUP_CHUNKS - whole_c == Counter(spgemm=2, restrict=1)
+    assert not [s for s in spans if s[0] == "dell.chunks"]
+    monkeypatch.setattr(tdell, "_SPGEMM_CHUNK_LIMIT", M.K * M.K * 100)
+    monkeypatch.setattr(tdell, "_RESTRICT_CHUNK_LIMIT", M.K * M.K * 60)
+    cut_c = tdell.SETUP_CHUNKS.copy()
+    with timers.collect() as spans:
+        cut_lumped = tdell.spgemm_drop_dell(M, M, 0.1, True, True)
+        cut_plan = tdell.restrict_plan(M.cols, M)
+        live_c = tdell.SETUP_CHUNKS.copy()
+        cut = tdell.spgemm_drop_dell(M, M, 0.0, True, False)
+    assert live_c - cut_c == Counter(spgemm=-(-n // 100),
+                                     restrict=-(-n // 60))
+    live = (tdell.SETUP_CHUNKS - live_c)["spgemm"]
+    assert 1 < live < -(-n // 100)
+    assert [s[1] for s in spans if s[0] == "dell.chunks"] == [
+        "spgemm", "restrict", "spgemm"]
+    assert (cut.to_scipy() != whole.to_scipy()).nnz == 0
+    assert (cut_lumped.to_scipy() != lumped.to_scipy()).nnz == 0
+    assert torch.equal(cut_plan, plan)
+
+    # (3) each recurrence on a restriction plan (the polynomial's powers,
+    # the Newton basis, Z's Richardson steps) runs over the plan's row
+    # chunks past ``_RESTRICT_PLAN_LIMIT``, each row as on the whole plan
+    from pflare_tpu_torch.air.device_setup import _improve_z_device
+
+    inv_diag = 1.0 / torch.as_tensor(A.diagonal())
+    coeffs = torch.tensor([0.5, -0.25, 0.125, -0.0625], dtype=torch.float64)
+    wr, wi = np.array([2.0, 1.0, 1.0, 3.0]), np.array([0.0, 0.5, -0.5, 0.0])
+
+    def recurrences():
+        return (tdell.poly_dell(M, coeffs).data,
+                tdell.newton_poly_dell(M, wr, wi, 1e-14).data,
+                _improve_z_device(M, M, M, inv_diag, 2).data)
+
+    on_whole = recurrences()
+    monkeypatch.setattr(tdell, "_RESTRICT_PLAN_LIMIT", M.K * M.K * 60)
+    before = tdell.SETUP_CHUNKS.copy()
+    on_chunks = recurrences()
+    assert tdell.SETUP_CHUNKS - before == Counter(restrict=3 * -(-n // 60))
+    for got, want in zip(on_chunks, on_whole):
+        assert torch.equal(got, want)
